@@ -1,0 +1,4 @@
+"""Hand-written CUDA kernels for the Lie-group hot path, with wrappers
+that take the plain PyTorch version for CPU tensors."""
+from lie_vae_tpu_torch.ops.kernels.wigner_fused import (  # noqa: F401
+    block_wigner_matrix_multiply_fused)
