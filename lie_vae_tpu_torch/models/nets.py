@@ -8,13 +8,38 @@ PyTorch reference's, so their state_dict keys (``encoder.0.weight`` ...
 rewrite and not a Pallas kernel) computes the same function as
 ``nn.ConvTranspose2d(k=4, s=2, p=1)``.
 """
+import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode update of the running statistics
+    is flax's: ``running_var`` moves toward the biased batch variance (torch
+    uses the unbiased one), ``running = (1 - momentum) running + momentum
+    batch`` with momentum 0.1 (flax's 0.9 on the old value). Normalisation
+    is unchanged (both libraries use the biased batch variance inside the
+    step), and so are the state_dict keys."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, training=True,
+                         momentum=0.0, eps=self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(m * mean)
+            self.running_var.mul_(1.0 - m).add_(m * var)
+            self.num_batches_tracked.add_(1)
+        return y
 
 
 class ConvEncoder(nn.Sequential):
     """Five strided convs, 64x64 -> out_dims: channels in -> h -> 2h -> 4h
     -> 8h -> out, kernel 4 stride 2 pad 1 (the last 4/1/0), each but the
-    last followed by BatchNorm (eps 1e-5, optional) and LeakyReLU(0.2).
+    last followed by BatchNorm (eps 1e-5, momentum 0.1 with flax's biased
+    running variance; optional) and LeakyReLU(0.2).
     Takes NCHW, returns (B, out_dims)."""
 
     def __init__(self, out_dims, hidden_dims=50, rgb=False, batch_norm=True):
@@ -24,7 +49,7 @@ class ConvEncoder(nn.Sequential):
         for w in widths:
             layers.append(nn.Conv2d(c_in, w, 4, 2, 1))
             if batch_norm:
-                layers.append(nn.BatchNorm2d(w, eps=1e-5))
+                layers.append(BatchNorm2d(w, eps=1e-5, momentum=0.1))
             layers.append(nn.LeakyReLU(0.2))
             c_in = w
         layers.append(nn.Conv2d(c_in, out_dims, 4, 1, 0))       # 4x4 -> 1x1

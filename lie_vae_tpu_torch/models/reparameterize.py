@@ -68,9 +68,10 @@ class N0Reparameterize(nn.Module):
 
 class SO3Reparameterize(nn.Module):
     """Mean rotation from a mean head, sigma = max(softplus(.), 1e-6)
-    (optionally clamped above at ``sigma_clamp``), z = mu @ exp(eps sigma)."""
+    (optionally clamped above at ``sigma_clamp``), z = mu @ exp(eps sigma);
+    ``k`` wrapping shells for the posterior density."""
 
-    def __init__(self, in_dims, mean_mode="s2s2", sigma_clamp=None):
+    def __init__(self, in_dims, mean_mode="s2s2", sigma_clamp=None, k=10):
         super().__init__()
         if mean_mode not in MEAN_MODULES:
             raise NotImplementedError(
@@ -79,6 +80,7 @@ class SO3Reparameterize(nn.Module):
         self.mean_module = MEAN_MODULES[mean_mode](in_dims)
         self.reparameterize = N0Reparameterize(in_dims)
         self.sigma_clamp = sigma_clamp
+        self.k = k
 
     def forward(self, h, n=1, eps=None, generator=None):
         mu_lie = self.mean_module(h)
@@ -86,5 +88,5 @@ class SO3Reparameterize(nn.Module):
             F.softplus(self.reparameterize.sigma_linear(h)), min=_SIGMA_FLOOR)
         if self.sigma_clamp is not None:
             sigma = torch.clamp(sigma, max=self.sigma_clamp)
-        return dist.sample_so3(mu_lie, sigma, n=n, eps=eps,
+        return dist.sample_so3(mu_lie, sigma, n=n, k=self.k, eps=eps,
                                generator=generator)

@@ -4,8 +4,12 @@ Counterpart of ``LieVAE`` in the JAX package's ``models/vae.py``, for the
 configuration the serving slice runs: ``latent_mode='so3'``,
 ``decoder_mode='action'``, ``encode_mode='conv'``, ``deconv_mode='deconv'``.
 Other modes raise ``NotImplementedError``. Images are NHWC at the public
-methods, as in the JAX package, and permuted to NCHW once inside.
+methods, as in the JAX package, and permuted to NCHW once inside. Train or
+eval mode is the module's (``model.train()`` / ``model.eval()``): it
+decides whether BatchNorm normalises with batch statistics and updates its
+running ones.
 """
+import torch
 from torch import nn
 
 from lie_vae_tpu_torch import ops
@@ -30,7 +34,8 @@ class LieVAE(nn.Module):
                  encode_mode="conv", deconv_mode="deconv", mean_mode="alg",
                  degrees=6, rep_copies=10, deconv_hidden=50, conv_hidden=50,
                  batch_norm=True, rgb=False, group_reparam_in_dims=10,
-                 wigner_transpose=False, sigma_clamp=None, device="cuda"):
+                 wigner_transpose=False, sigma_clamp=None, density_k=10,
+                 device="cuda"):
         super().__init__()
         requested = {"latent_mode": latent_mode, "decoder_mode": decoder_mode,
                      "encode_mode": encode_mode, "deconv_mode": deconv_mode}
@@ -49,7 +54,8 @@ class LieVAE(nn.Module):
         self.encoder = ConvEncoder(in_dims, hidden_dims=conv_hidden, rgb=rgb,
                                    batch_norm=batch_norm)
         self.reparameterize = nn.ModuleList([SO3Reparameterize(
-            in_dims, mean_mode=mean_mode, sigma_clamp=sigma_clamp)])
+            in_dims, mean_mode=mean_mode, sigma_clamp=sigma_clamp,
+            k=density_k)])
         matrix_dims = (degrees + 1) ** 2
         self.decoder = ActionDecoder(
             degrees, DeconvNet(matrix_dims * rep_copies, deconv_hidden,
@@ -81,12 +87,32 @@ class LieVAE(nn.Module):
         stats = self.encode(x, n=n, eps=eps, generator=generator)
         return self.decode(stats[0].z), stats
 
+    @staticmethod
+    def recon_loss(x_recon, x):
+        """Sum-of-squares reconstruction error over the image dims, (n, B)."""
+        sq = (x_recon - x.expand_as(x_recon)) ** 2
+        return torch.sum(sq, dim=tuple(range(2, sq.dim())))
 
-def flagship_model(device="cuda"):
+    @staticmethod
+    def kl(stats):
+        """Per-reparameterizer KLs, each (B,)."""
+        return [s.kl() for s in stats]
+
+    def elbo(self, x, n=1, eps=None, generator=None):
+        """Returns (recon_loss (n, B), kl_summed (B,), kls, stats)."""
+        x_recon, stats = self(x, n=n, eps=eps, generator=generator)
+        kls = self.kl(stats)
+        recon = self.recon_loss(x_recon, x)
+        return recon, sum(kls), kls, stats
+
+
+def flagship_model(device="cuda", sigma_clamp=None):
     """The flagship configuration (the JAX package's
     ``__graft_entry__._flagship_model``): SO(3) latent with the S2xS2 mean,
-    L = 6 with 10 copies, conv width 50, deconv width 200, RGB, BatchNorm."""
+    L = 6 with 10 copies, conv width 50, deconv width 200, RGB, BatchNorm;
+    ``sigma_clamp`` an upper clamp on the posterior's algebra sigma
+    (``bench.py`` trains with pi * 10 / 2)."""
     return LieVAE(latent_mode="so3", decoder_mode="action", mean_mode="s2s2",
                   encode_mode="conv", deconv_mode="deconv", degrees=6,
                   rep_copies=10, deconv_hidden=200, conv_hidden=50, rgb=True,
-                  batch_norm=True, device=device)
+                  batch_norm=True, sigma_clamp=sigma_clamp, device=device)

@@ -42,7 +42,12 @@ def _busy_us(events):
     return busy
 
 
-def profile_request(name, fn, reps, out_dir, unit="request of 64"):
+def profile_request(name, fn, reps, out_dir, unit="request of 64",
+                    watch=("wigner_chain",)):
+    """Profile ``reps`` calls of ``fn``; print host ms per call, the
+    device's busy share, and the device us per call of the 8 costliest
+    device items and of every item whose name holds one of ``watch``.
+    Returns {item name: device us per call}."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -68,8 +73,9 @@ def profile_request(name, fn, reps, out_dir, unit="request of 64"):
           f"device events per {unit}")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     for kname, dur in ranked[:8] + [kv for kv in ranked[8:]
-                                    if "wigner_chain" in kv[0]]:
+                                    if any(w in kv[0] for w in watch)]:
         print(f"    {dur / reps:9.2f} us  {kname[:100]}")
+    return {k: v / reps for k, v in by_name.items()}
 
 
 def main(argv=None):

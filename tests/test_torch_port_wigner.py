@@ -7,8 +7,14 @@ shared and per-sample spectra, transpose on and off. Tolerances: 1e-10 in
 float64 (the same sums, two libraries), 2e-5 in float32 (sums of up to 13
 terms of order 1, taken in another order).
 
-The CUDA kernel itself runs only on a card: ``test_kernel_matches_plain``
-is marked ``cuda`` and skips elsewhere.
+Gradients: the plain chain's d angles and d spectrum under autograd
+against ``jax.vjp`` of the JAX plain chain with the same cotangent, in
+float64 at 1e-10, over L in {0, 1, 3}, shared and per-sample, transpose on
+and off.
+
+The CUDA kernels themselves run only on a card: ``test_kernel_matches_plain``
+and ``test_backward_kernel_matches_autograd`` are marked ``cuda`` and skip
+elsewhere.
 """
 import numpy as np
 import pytest
@@ -124,6 +130,60 @@ def test_packed_j_holds_every_block():
         jp[-169:].numpy(), tops.j_matrix(6).reshape(-1).astype(np.float32))
 
 
+GRAD_DEGREES = (0, 1, 3)
+
+
+@pytest.fixture(scope="module")
+def jax_grads():
+    """d angles and d spectrum of sum(out * G) for every case (jitted)."""
+    def vjp(angles, spec, G, L, tr):
+        _, pull = jax.vjp(
+            lambda a, x: jops.block_wigner_apply_zjz(a, x, L, tr),
+            angles, spec)
+        return pull(G)
+
+    vjp = jax.jit(vjp, static_argnums=(3, 4))
+    out = {}
+    for L in GRAD_DEGREES:
+        for shared in (True, False):
+            angles, spec = _inputs(L, shared, np.float64)
+            G = np.random.default_rng(L).normal(
+                size=(angles.shape[0],) + spec.shape[-2:])
+            for tr in (False, True):
+                out[L, shared, tr] = [np.asarray(a) for a in vjp(
+                    jnp.asarray(angles), jnp.asarray(spec), jnp.asarray(G),
+                    L, tr)]
+    return out
+
+
+@pytest.mark.parametrize("L", GRAD_DEGREES)
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "batched"])
+@pytest.mark.parametrize("transpose", [False, True], ids=["fwd", "T"])
+def test_plain_chain_grads_match_jax(jax_grads, L, shared, transpose):
+    angles, spec = _inputs(L, shared, np.float64)
+    G = np.random.default_rng(L).normal(size=(angles.shape[0],)
+                                        + spec.shape[-2:])
+    a = torch.tensor(angles, requires_grad=True)
+    x = torch.tensor(spec, requires_grad=True)
+    out = tops.block_wigner_matrix_multiply(a, x, L, transpose=transpose)
+    (out * torch.tensor(G)).sum().backward()
+    da, dx = jax_grads[L, shared, transpose]
+    np.testing.assert_allclose(a.grad.numpy(), da, rtol=0, atol=1e-10)
+    np.testing.assert_allclose(x.grad.numpy(), dx, rtol=0, atol=1e-10)
+
+
+def test_cpu_training_never_launches_the_kernels():
+    fused = wigner_fused.block_wigner_matrix_multiply_fused
+    before = (fused.launches, fused.launches_residuals,
+              fused.launches_backward)
+    angles, spec = _inputs(3, True, np.float32)
+    a = torch.tensor(angles, requires_grad=True)
+    fused(a, torch.tensor(spec, requires_grad=True), 3).sum().backward()
+    assert a.grad is not None
+    assert (fused.launches, fused.launches_residuals,
+            fused.launches_backward) == before
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -149,3 +209,38 @@ def test_kernel_matches_plain(cuda_device, L):
                 want = tops.block_wigner_apply_zjz(a, x, L, transpose=tr)
                 tol = 1e-5 * max(1.0, float(x.abs().max()))
                 assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", (0, 1, 3, 6, 10))
+def test_backward_kernel_matches_autograd(cuda_device, L):
+    """K2 (forward with residuals, then the backward kernel) against
+    autograd of the plain chain on the card, float32: d angles and
+    d spectrum within 1e-4 * max(1, max |reference|), sums of up to
+    S * C * B float32 terms taken in another order. C = 40 at L = 10 spans
+    three channel tiles of the backward."""
+    fused = wigner_fused.block_wigner_matrix_multiply_fused
+    for shared in (True, False):
+        for B, C in ((1, 1), (64, 10), (4103, 16), (5, 40)):
+            angles, spec = _inputs(L, shared, np.float32, B=B, C=C)
+            G = torch.tensor(np.random.default_rng(L).normal(
+                size=(B,) + spec.shape[-2:]), dtype=torch.float32,
+                device=cuda_device)
+            for tr in (False, True):
+                grads = []
+                for fn in (fused, tops.block_wigner_apply_zjz):
+                    a = torch.tensor(angles, device=cuda_device,
+                                     requires_grad=True)
+                    x = torch.tensor(spec, device=cuda_device,
+                                     requires_grad=True)
+                    before = (fused.launches_residuals,
+                              fused.launches_backward)
+                    (fn(a, x, L, transpose=tr) * G).sum().backward()
+                    after = (fused.launches_residuals,
+                             fused.launches_backward)
+                    assert after == ((before[0] + 1, before[1] + 1)
+                                     if fn is fused else before)
+                    grads.append((a.grad, x.grad))
+                for got, want in zip(*grads):
+                    tol = 1e-4 * max(1.0, float(want.abs().max()))
+                    assert float((got - want).abs().max()) <= tol
