@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's serving path, its training step and its
+experiment CLI on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -7,8 +7,9 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``.
 Phases, each timed:
 
 1. card: name and power limit (nvidia-smi), torch, CUDA and nvcc versions;
-2. build: the Wigner chain kernels (csrc/wigner_chain.cu) and the density
-   kernels (csrc/so3_density.cu), one nvcc each, started together;
+2. build: the Wigner chain kernels (csrc/wigner_chain.cu), the density
+   kernels (csrc/so3_density.cu) and the synthesise-then-apply Wigner
+   kernels (csrc/wigner_block.cu), one nvcc each, started together;
 3. K1, the chain kernel without residuals, against the plain chain on the
    card over L in {0, 1, 3, 6, 10}, C in {1, 10, 16}, B in {1, 64, 4103},
    shared and per-sample spectra, transpose on and off; then both timed
@@ -22,18 +23,32 @@ Phases, each timed:
    samples (the last as n = 4 samples of a batch of 16384), k in
    {0, 1, 10}, sigma from 1e-6 to pi * 10 / 2, v = 0 and |v| near
    multiples of 2 pi; timed at N = 64 and N = 4096;
-6. serving: the flagship model with the converged reference weights
+6. K5 and K6, the synthesise-then-apply Wigner kernel and its backward,
+   against the plain version and its autograd over K1's grid: the output,
+   K6's six outputs, and the angle and spectrum gradients through the
+   autograd Function; timed at B = 64 and B = 4096 (L = 6, C = 10, shared);
+7. serving: the flagship model with the converged reference weights
    (converged_state/torch_clean/best.pt), batch 64, on the card: warmup,
    sample, encode, reconstruct, geodesic and a ragged decode, checked for
    shape, finiteness, rotations and one kernel launch per decode chunk,
    then held against the same requests served on the CPU, and timed;
-7. training: the flagship model as ``bench.py`` trains it (sigma clamp
-   pi * 10 / 2; float32, TF32 off) from the same weights, fresh optimizer
-   (lr 1e-3, clip 1e-5), beta 1, batch 64 of uint8 images that the serving
-   session decodes from Haar-random poses: one step on the card against
-   the same step on the CPU (loss, every gradient, parameters and
-   BatchNorm statistics after it), then 20 steps with finite losses and
-   one launch per step of each training kernel, timed per step.
+8. renders: 1024 poses of data_poses/spherecube.npz rendered with the
+   port's ray-caster (``cli/gen_spherecube.py``) into chiprun_out/;
+9. training, once with ``kernel_impl='fused'`` (K2, K3, K4) and once with
+   ``'pallas'`` (K5, K6, K3, K4): the flagship model as ``bench.py``
+   trains it (sigma clamp pi * 10 / 2; float32, TF32 off) from the same
+   weights, fresh optimizer (lr 1e-3, clip 1e-5), beta 1, batch 64 of the
+   renders: one step on the card against the same step on the CPU (loss,
+   every gradient, parameters and BatchNorm statistics after it), then 20
+   steps with finite losses and one launch per step of each kernel of the
+   path and none of the other's, timed per step;
+10. the CLI: ``cli.main.main`` with the flagship defaults and
+   ``--kernel_impl pallas`` on the renders, two epochs, checkpoint and logs
+   under chiprun_out/: every logged loss finite, K5, K6, K3 and K4 launched
+   and K1, K2 not, the best checkpoint served by
+   ``InferenceSession.from_checkpoint`` decoding fixed poses as the model
+   it saved, and each test item's IW-LL finite and no lower than the mean
+   of its own log-weights (Jensen's inequality); seconds per epoch.
 
 The last lines are a JSON record of the kernels, the card line, and
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -82,8 +97,26 @@ TRAIN_GRAD_TOL = 1e-3
 BIAS_TOL = 1e-3
 PARAM_TOL = 1e-5
 STATS_TOL = 1e-4
+# The step is held against the exact one (float64 on the CPU), each
+# quantity within its tolerance above plus ARBITER times the CPU's own
+# float32 error against that exact step. From the converged weights on the
+# real renders the float32 step loses digits on any device (a near-
+# stationary point: gradients are sums that cancel, and Adam's first step
+# g / (|g| + 1e-8) magnifies the error of the small ones): the CPU's float32
+# step is 3.0e-5 from the exact one in the first conv's weights after the
+# step and 9.0e-3 of max in the last hidden deconv's gradient, where images
+# that the serving session decodes keep both below 4e-4.
+ARBITER = 2.0
 SIGMA_CLAMP = math.pi * 10 / 2
 TRAIN_STEPS = 20
+# the CLI phase: poses of data_poses/spherecube.npz rendered by the port,
+# two epochs on them, and the IW-LL of a few test items
+RENDER_POSES = 1024
+DATA_DIR = os.path.join(ROOT, "chiprun_out", "smoke_data", "spherecube")
+CLI_DIR = os.path.join(ROOT, "chiprun_out", "smoke_cli")
+CLI_EPOCHS = 2
+LL_SAMPLES = 20
+LL_ITEMS = 8
 # GPU vs CPU serving, float32 with TF32 off: ten conv layers whose sums run
 # in other orders (cuDNN's algorithms against the CPU's)
 IMAGE_TOL = 1e-3
@@ -183,6 +216,40 @@ def _bound(nbytes, flops):
         "operations"
 
 
+def block_bound(B, L, C, shared, backward, nnz):
+    """K5 (or K6 with ``backward``) on an H100 SXM: t, ca, sa, cg, sg and the
+    spectrum read once, the ``nnz`` non-zero coefficients once, the output
+    written once (K6: dout read too; dt, dca, dsa, dcg, dsg and the
+    per-sample dspec written), against the float32 operations per sample:
+    the synthesis, 2 sum_l (2l+1)^3, W, 8 n_j, and the product, 2 n_j C
+    (K6: the synthesis, W, A and dspec, 2 n_j C each, the cotangent H of d
+    and the four row and column sums, 12 n_j and 16 n_j, and the dt
+    contraction, 2 sum_l (2l+1)^3)."""
+    S, M = (L + 1) ** 2, 2 * L + 1
+    n_j = (L + 1) * (4 * (L + 1) ** 2 - 1) // 3
+    n_c = sum((2 * l + 1) ** 3 for l in range(L + 1))
+    spec = S * C * (1 if shared else B)
+    feats = B * (M + 4 * S)
+    if backward:
+        nbytes = 4 * (feats + spec + nnz + B * S * C
+                      + B * (M + 4 * S) + B * S * C)
+        flops = B * (4 * n_c + 8 * n_j + 4 * n_j * C + 28 * n_j)
+    else:
+        nbytes = 4 * (feats + spec + nnz + B * S * C)
+        flops = B * (2 * n_c + 8 * n_j + 2 * n_j * C)
+    return _bound(nbytes, flops)
+
+
+def plain_block(angles, spectrum, L, transpose=False):
+    """The plain version of K5 from the angles: the trig features, then
+    ``wigner_block_apply_plain``; autograd of it is the reference of the
+    angle and spectrum gradients through the kernels' autograd Function."""
+    from lie_vae_tpu_torch.ops.kernels.wigner_block import (
+        trig_features, wigner_block_apply_plain)
+    return wigner_block_apply_plain(*trig_features(angles, L), spectrum, L,
+                                    transpose=transpose)
+
+
 def check_rotations(R, what):
     R = np.asarray(R, np.float64).reshape(-1, 3, 3)
     orth = np.abs(np.swapaxes(R, -1, -2) @ R - np.eye(3)).max()
@@ -228,6 +295,110 @@ def max_rel(got, want):
     return err, err / max(1.0, want.abs().max().item())
 
 
+def step_card_vs_cpu(weights, batch, eps, kernel_impl):
+    """One flagship training step from ``weights`` on the uint8 ``batch``
+    with the noise ``eps`` on the card in float32, and on the CPU in float32
+    and in float64. The card is held against the exact (float64) step: loss,
+    every gradient, the parameters and BatchNorm statistics after it, each
+    within its stated tolerance plus twice the CPU's own float32 error
+    against the same exact step (where float32 loses digits on this input,
+    as at a near-stationary point, that error says by how much). Returns
+    the card's model and optimizer."""
+    from lie_vae_tpu_torch.models import flagship_model
+    from lie_vae_tpu_torch.train import make_optimizer, train_step
+    runs = {}
+    for key, device, dtype in (("card", "cuda", torch.float32),
+                               ("cpu", "cpu", torch.float32),
+                               ("exact", "cpu", torch.float64)):
+        model = flagship_model(device, sigma_clamp=SIGMA_CLAMP,
+                               kernel_impl=kernel_impl)
+        model.load_state_dict(weights, strict=True)
+        model.to(dtype)
+        opt = make_optimizer(model.named_parameters(), lr=1e-3,
+                             clip_grads=1e-5)
+        metrics = train_step(model, opt, torch.as_tensor(batch), 1.0,
+                             eps=eps.to(dtype))
+        runs[key] = (model, opt, metrics)
+    (mg, opt_g, met_g), (mc, _, met_c), (me, _, met_e) = (
+        runs["card"], runs["cpu"], runs["exact"])
+    loss_g, loss_c, loss_e = (float(m["loss"]) for m in (met_g, met_c,
+                                                        met_e))
+    print(f"   one step: loss {loss_g:.6f} on the card, {loss_c:.6f} on the "
+          f"CPU, {loss_e:.6f} exact (recon {float(met_e['recon']):.4f}, KL "
+          f"{float(met_e['kl']):.4f})")
+    if not abs(loss_g - loss_e) <= LOSS_TOL * abs(loss_e) \
+            + ARBITER * abs(loss_c - loss_e):
+        raise AssertionError(f"training loss {loss_g} on the card vs "
+                             f"{loss_e} exact ({loss_c} on the CPU)")
+    cpu_params = dict(mc.named_parameters())
+    exact_params = dict(me.named_parameters())
+    # a conv bias that feeds a BatchNorm has zero gradient in exact
+    # arithmetic (the batch mean is subtracted): on both devices it must be
+    # rounding, below BIAS_TOL of its conv weight's largest gradient
+    enc = mg.encoder
+    pre_bn = {f"encoder.{i}.bias" for i in range(len(enc) - 1)
+              if isinstance(enc[i], torch.nn.Conv2d)
+              and isinstance(enc[i + 1], torch.nn.BatchNorm2d)}
+
+    def excess(card, cpu, exact, tol, scale):
+        """max |card - exact| over tol + ARBITER max |cpu - exact|, and the
+        card's and the CPU's errors against the exact value over
+        ``scale``."""
+        e_card = (card.detach().cpu().double() - exact.detach()).abs().max()
+        e_cpu = (cpu.detach().double() - exact.detach()).abs().max()
+        allowance = tol + ARBITER * e_cpu.item()
+        ratio = e_card.item() / allowance if allowance > 0 else (
+            0.0 if e_card.item() == 0 else math.inf)
+        return ratio, e_card.item() / scale, e_cpu.item() / scale
+
+    # per kind: worst share of the allowance, largest card and CPU errors
+    worst = {"grad": [0.0] * 3, "param": [0.0] * 3, "stat": [0.0] * 3}
+    worst_bias = 0.0
+
+    def note(kind, name, res, what):
+        if not res[0] <= 1.0:
+            raise AssertionError(
+                f"{what} of {name}: card {res[1]:.3e} from the exact step, "
+                f"beyond its tolerance plus {ARBITER} x the CPU's float32 "
+                f"error {res[2]:.3e} ({res[0]:.3f} of the allowance)")
+        worst[kind] = [max(a, b) for a, b in zip(worst[kind], res)]
+
+    for name, p in mg.named_parameters():
+        ref, exact = cpu_params[name], exact_params[name]
+        if name in pre_bn:
+            w = exact_params[name[:-len("bias")] + "weight"].grad.abs().max()
+            top = max(p.grad.abs().max().item(), ref.grad.abs().max().item())
+            if not top <= BIAS_TOL * w.item():
+                raise AssertionError(f"gradient of {name}: {top:.3e}, not "
+                                     f"rounding against {w.item():.3e}")
+            worst_bias = max(worst_bias, top / w.item())
+        else:
+            scale = exact.grad.abs().max().item()
+            note("grad", name, excess(p.grad, ref.grad, exact.grad,
+                                      TRAIN_GRAD_TOL * scale, scale),
+                 "gradient")
+        note("param", name, excess(p, ref, exact, PARAM_TOL, 1.0), "value")
+    cpu_buffers = dict(mc.named_buffers())
+    card_buffers = dict(mg.named_buffers())
+    for name, b in me.named_buffers():
+        card, ref = card_buffers[name], cpu_buffers[name]
+        if name.endswith("num_batches_tracked"):
+            if not int(card) == int(ref) == int(b):
+                raise AssertionError(f"{name}: {int(card)} vs {int(b)}")
+            continue
+        scale = b.abs().max().item()
+        note("stat", name, excess(card, ref, b, STATS_TOL * scale, scale),
+             "running statistic")
+    print(f"   against the exact step (gradients and statistics as a share "
+          f"of each tensor's max, parameters absolute): "
+          + "; ".join(f"{k}: card {v[1]:.3e}, CPU float32 {v[2]:.3e}, "
+                      f"worst {v[0]:.3f} of the allowance"
+                      for k, v in worst.items())
+          + f"; the biases before BatchNorm at most {worst_bias:.3e} of "
+          f"their weight's gradient (tol {BIAS_TOL})")
+    return mg, opt_g
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() "
@@ -240,15 +411,17 @@ def main():
                                        random_group_matrices)
     from lie_vae_tpu_torch.ops.kernels import _build
     from lie_vae_tpu_torch.ops.kernels import so3_density
+    from lie_vae_tpu_torch.ops.kernels import wigner_block
     from lie_vae_tpu_torch.ops.kernels import wigner_fused
     from lie_vae_tpu_torch.ops.wigner import block_wigner_apply_zjz
     from lie_vae_tpu_torch.serve import InferenceSession
-    from lie_vae_tpu_torch.train import make_optimizer, train_step
+    from lie_vae_tpu_torch.train import train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     fused = wigner_fused.block_wigner_matrix_multiply_fused
     dens = so3_density.so3_wrapped_log_density_fused
+    block = wigner_block.block_wigner_matrix_multiply_pallas
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
@@ -268,7 +441,7 @@ def main():
     done(t0)
 
     t0 = phase("build (one nvcc per source, all started together)")
-    sources = ("wigner_chain", "so3_density")
+    sources = ("wigner_chain", "so3_density", "wigner_block")
     cached = {n: os.path.exists(_build.library_path(n)) for n in sources}
 
     def timed_build(name):
@@ -458,6 +631,92 @@ def main():
               f"{bb[0]:.6f} {bb[1]})")
     done(t0)
 
+    t0 = phase("K5/K6: synthesise-then-apply Wigner kernel and its backward "
+               "vs the plain version and its autograd on the card")
+    k5_err = {"fwd": 0.0, "bwd": 0.0}
+    for L in (0, 1, 3, 6, 10):
+        S = (L + 1) ** 2
+        n, worst_f, worst_g = 0, 0.0, 0.0
+        for C in (1, 10, 16):
+            for B in (1, 64, 4103):
+                angles = group_matrix_to_eazyz(random_group_matrices(
+                    B, gen, device="cpu").to(dev)).contiguous()
+                feats = [f.contiguous() for f in
+                         wigner_block.trig_features(angles, L)]
+                for shared in (True, False):
+                    x = torch.randn((S, C) if shared else (B, S, C),
+                                    generator=gen).to(dev)
+                    dout = torch.randn((B, S, C), generator=gen).to(dev)
+                    for tr in (False, True):
+                        # K5 and K6 against the plain version
+                        got = wigner_block._launch(*feats, x, L, tr)
+                        ins = [f.clone().requires_grad_() for f in feats] \
+                            + [x.clone().requires_grad_()]
+                        ref = wigner_block.wigner_block_apply_plain(
+                            *ins, L, transpose=tr)
+                        want = torch.autograd.grad(ref, ins, dout)
+                        *k6, dspec = wigner_block._launch_backward(
+                            *feats, x, dout, L, tr, True)
+                        k6.append(dspec.sum(0) if shared else dspec)
+                        e_out = (got - ref).abs().max().item()
+                        tol_out = KERNEL_TOL * max(1.0, x.abs().max().item())
+                        r_k6 = max(max_rel(a, b)[1] for a, b in zip(k6, want))
+                        # angle and spectrum gradients through the
+                        # autograd Function against the plain version's
+                        res = []
+                        for fn in (block, plain_block):
+                            a = angles.clone().requires_grad_()
+                            xx = x.clone().requires_grad_()
+                            out = fn(a, xx, L, transpose=tr)
+                            res.append(torch.autograd.grad(out, (a, xx),
+                                                           dout))
+                        r_fn = max(max_rel(a, b)[1]
+                                   for a, b in zip(*res))
+                        torch.cuda.synchronize()
+                        if not (e_out <= tol_out and r_k6 <= GRAD_TOL
+                                and r_fn <= GRAD_TOL):
+                            raise AssertionError(
+                                f"K5/K6 != plain: L={L} C={C} B={B} "
+                                f"shared={shared} transpose={tr}: out "
+                                f"{e_out:.3e} (tol {tol_out:.3e}), K6 "
+                                f"outputs {r_k6:.3e}, angle/spectrum "
+                                f"gradients {r_fn:.3e} of max(1, max|ref|) "
+                                f"(tol {GRAD_TOL})")
+                        k5_err["fwd"] = max(k5_err["fwd"], e_out)
+                        k5_err["bwd"] = max(
+                            k5_err["bwd"],
+                            max(max_rel(a, b)[0] for a, b in zip(k6, want)))
+                        worst_f = max(worst_f, e_out)
+                        worst_g = max(worst_g, r_k6, r_fn)
+                        n += 1
+        print(f"   L={L:2d}: {n} cases, max |K5 - plain| {worst_f:.3e}, "
+              f"max K6 / gradient error {worst_g:.3e} of max(1, max|ref|)")
+    nnz = int(torch.count_nonzero(wigner_block.packed_coeffs(6, dev)))
+    k5_timing = {}
+    for B in (64, 4096):
+        angles = group_matrix_to_eazyz(
+            random_group_matrices(B, gen, device="cpu").to(dev)).contiguous()
+        feats = [f.contiguous() for f in wigner_block.trig_features(angles, 6)]
+        dout = torch.randn((B, 49, 10), generator=gen).to(dev)
+        f_ms = cuda_ms(lambda: wigner_block._launch(*feats, item_rep, 6,
+                                                    False))
+        b_ms = cuda_ms(lambda: wigner_block._launch_backward(
+            *feats, item_rep, dout, 6, False, True))
+        ins = [f.clone().requires_grad_() for f in feats] \
+            + [item_rep.clone().requires_grad_()]
+        pf_ms = cuda_ms(lambda: wigner_block.wigner_block_apply_plain(
+            *ins, 6))
+        ref = wigner_block.wigner_block_apply_plain(*ins, 6)
+        pb_ms = cuda_ms(lambda: torch.autograd.grad(ref, ins, dout,
+                                                    retain_graph=True))
+        fb = block_bound(B, 6, 10, True, False, nnz)
+        bb = block_bound(B, 6, 10, True, True, nnz)
+        k5_timing[B] = (f_ms, pf_ms, fb, b_ms, pb_ms, bb)
+        print(f"   B={B} L=6 C=10 shared: K5 {f_ms:.4f} ms (plain with grad "
+              f"{pf_ms:.4f}, bound {fb[0]:.6f} {fb[1]}); K6 {b_ms:.4f} ms "
+              f"(plain autograd {pb_ms:.4f}, bound {bb[0]:.6f} {bb[1]})")
+    done(t0)
+
     t0 = phase("serving: flagship, converged weights, batch 64, on the card")
     sess = InferenceSession.from_torch(CHECKPOINT, flagship_model(),
                                        batch_size=64, seed=0)
@@ -525,115 +784,171 @@ def main():
           + ", ".join(f"{k} {v:.3f}" for k, v in req_ms.items()))
     done(t0)
 
-    t0 = phase("training: flagship as bench.py trains it, batch 64, beta 1")
-    weights = compat.load_torch(CHECKPOINT)
-    batch = (np.clip(sess.sample(64, seed=1), 0.0, 1.0) * 255.0).round() \
-        .astype(np.uint8)
-    eps = torch.randn((1, 64, 3), generator=torch.Generator().manual_seed(2))
-    runs = {}
-    for device in ("cuda", "cpu"):
-        model = flagship_model(device, sigma_clamp=SIGMA_CLAMP)
-        model.load_state_dict(weights, strict=True)
-        opt = make_optimizer(model.named_parameters(), lr=1e-3,
-                             clip_grads=1e-5)
-        metrics = train_step(model, opt, torch.as_tensor(batch), 1.0,
-                             eps=eps)
-        runs[device] = (model, opt, metrics)
-    (mg, opt_g, met_g), (mc, _, met_c) = runs["cuda"], runs["cpu"]
-    loss_g, loss_c = float(met_g["loss"]), float(met_c["loss"])
-    print(f"   one step: loss {loss_g:.6f} on the card, {loss_c:.6f} on the "
-          f"CPU (recon {float(met_c['recon']):.4f}, KL "
-          f"{float(met_c['kl']):.4f})")
-    if not abs(loss_g - loss_c) <= LOSS_TOL * abs(loss_c):
-        raise AssertionError(f"training loss {loss_g} on the card vs "
-                             f"{loss_c} on the CPU")
-    cpu_params = dict(mc.named_parameters())
-    # a conv bias that feeds a BatchNorm has zero gradient in exact
-    # arithmetic (the batch mean is subtracted): on both devices it must be
-    # rounding, below BIAS_TOL of its conv weight's largest gradient
-    enc = mg.encoder
-    pre_bn = {f"encoder.{i}.bias" for i in range(len(enc) - 1)
-              if isinstance(enc[i], torch.nn.Conv2d)
-              and isinstance(enc[i + 1], torch.nn.BatchNorm2d)}
-    worst_grad, worst_param, worst_bias = 0.0, 0.0, 0.0
-    for name, p in mg.named_parameters():
-        ref = cpu_params[name]
-        if name in pre_bn:
-            w = cpu_params[name[:-len("bias")] + "weight"].grad.abs().max()
-            top = max(p.grad.abs().max().item(), ref.grad.abs().max().item())
-            if not top <= BIAS_TOL * w.item():
-                raise AssertionError(f"gradient of {name}: {top:.3e}, not "
-                                     f"rounding against {w.item():.3e}")
-            worst_bias = max(worst_bias, top / w.item())
-        else:
-            err = (p.grad.cpu() - ref.grad).abs().max().item()
-            scale = ref.grad.abs().max().item()
-            if not err <= TRAIN_GRAD_TOL * scale:
-                raise AssertionError(f"gradient of {name}: {err:.3e} vs max "
-                                     f"{scale:.3e} on the CPU")
-            worst_grad = max(worst_grad, err / scale)
-        d = (p.detach().cpu() - ref.detach()).abs().max().item()
-        if not d <= PARAM_TOL:
-            raise AssertionError(f"{name} after the step: {d:.3e}")
-        worst_param = max(worst_param, d)
-    cpu_buffers = dict(mc.named_buffers())
-    worst_stat = 0.0
-    for name, b in mg.named_buffers():
-        ref = cpu_buffers[name]
-        if name.endswith("num_batches_tracked"):
-            if int(b) != int(ref):
-                raise AssertionError(f"{name}: {int(b)} vs {int(ref)}")
-            continue
-        err = (b.cpu() - ref).abs().max().item() / ref.abs().max().item()
-        if not err <= STATS_TOL:
-            raise AssertionError(f"{name} after the step: {err:.3e}")
-        worst_stat = max(worst_stat, err)
-    print(f"   card vs CPU after one step: gradients {worst_grad:.3e} of "
-          f"each tensor's max (tol {TRAIN_GRAD_TOL}); the biases before "
-          f"BatchNorm at most {worst_bias:.3e} of their weight's gradient "
-          f"(tol {BIAS_TOL}); parameters "
-          f"{worst_param:.3e} (tol {PARAM_TOL}), BatchNorm statistics "
-          f"{worst_stat:.3e} of max (tol {STATS_TOL})")
+    t0 = phase("renders: sphere-cube poses of data_poses/spherecube.npz with "
+               "the port's renderer")
+    from lie_vae_tpu_torch.cli import gen_spherecube
+    tr0 = time.perf_counter()
+    renders = gen_spherecube.generate(
+        RENDER_POSES, DATA_DIR,
+        from_poses=os.path.join(ROOT, "data_poses", "spherecube.npz"))
+    render_s = time.perf_counter() - tr0
+    if renders.shape != (RENDER_POSES, 64, 64, 3) or renders.max() == 0:
+        raise AssertionError(f"renders {renders.shape}, max {renders.max()}")
+    print(f"   {RENDER_POSES} renders in {render_s:.2f} s -> {DATA_DIR}")
+    done(t0)
 
+    weights = compat.load_torch(CHECKPOINT)
+    batch = renders[:64]
     counters = ((fused, "launches"), (fused, "launches_residuals"),
                 (fused, "launches_backward"), (dens, "launches"),
-                (dens, "launches_backward"))
+                (dens, "launches_backward"), (block, "launches"),
+                (block, "launches_backward"))
+
+    def counts():
+        prefix = {id(fused): "", id(dens): "density_", id(block): "block_"}
+        return {prefix[id(obj)] + attr: getattr(obj, attr)
+                for obj, attr in counters}
+
+    train_runs = {}
+    for impl, want in (("fused", [0, 1, 1, 1, 1, 0, 0]),
+                       ("pallas", [0, 0, 0, 1, 1, 1, 1])):
+        t0 = phase(f"training, kernel_impl={impl!r}: flagship as bench.py "
+                   "trains it, batch 64 of the renders, beta 1")
+        eps = torch.randn((1, 64, 3),
+                          generator=torch.Generator().manual_seed(2))
+        for obj, attr in counters:
+            setattr(obj, attr, 0)
+        mg, opt_g = step_card_vs_cpu(weights, batch, eps, impl)
+        delta = [getattr(obj, attr) for obj, attr in counters]
+        if delta != want:
+            raise AssertionError(
+                f"launches in the card's step (K1, K2 forward, K2 backward, "
+                f"K3, K4, K5, K6): {delta}, expected {want}")
+        for obj, attr in counters:
+            setattr(obj, attr, 0)
+        x_dev = torch.as_tensor(batch, device=dev)
+        noise = torch.Generator().manual_seed(3)
+        losses, step_ms = [], []
+        for _ in range(TRAIN_STEPS):
+            before = [getattr(obj, attr) for obj, attr in counters]
+            ts = time.perf_counter()
+            metrics = train_step(mg, opt_g, x_dev, 1.0, generator=noise)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - ts))
+            delta = [getattr(obj, attr) - b
+                     for (obj, attr), b in zip(counters, before)]
+            if delta != want:
+                raise AssertionError(
+                    f"launches in one step (K1, K2 forward, K2 backward, "
+                    f"K3, K4, K5, K6): {delta}, expected {want}")
+            losses.append(metrics["loss"])
+        losses = torch.stack(losses).cpu()
+        if not torch.isfinite(losses).all():
+            raise AssertionError(f"non-finite training loss: "
+                                 f"{losses.tolist()}")
+        train_ms = statistics.median(step_ms[2:])
+        train_runs[impl] = (train_ms, step_ms[:2], losses, counts())
+        print(f"   {TRAIN_STEPS} steps: losses {losses[0]:.4f} .. "
+              f"{losses[-1]:.4f}, all finite; launches per step (K1, K2 "
+              f"forward, K2 backward, K3, K4, K5, K6) {want}")
+        print(f"   ms per step (host clock, synchronised, median of steps "
+              f"3-{TRAIN_STEPS}): {train_ms:.3f}; first two "
+              f"{step_ms[0]:.3f}, {step_ms[1]:.3f}")
+        done(t0)
+    print(f"   ms per step, kernel_impl 'pallas' {train_runs['pallas'][0]:.3f}"
+          f" vs 'fused' {train_runs['fused'][0]:.3f}")
+
+    t0 = phase("the CLI on the card: python -m lie_vae_tpu_torch.cli.main "
+               "--kernel_impl pallas, flagship defaults, the renders")
+    from lie_vae_tpu_torch.cli import main as cli_main
+    from lie_vae_tpu_torch.train import UnsupervisedExperiment
+    from lie_vae_tpu_torch.train.checkpoint import load_checkpoint
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    epoch_s = []
+    train_epoch = UnsupervisedExperiment.train
+
+    def timed_epoch(self, epoch):
+        te = time.perf_counter()
+        train_epoch(self, epoch)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - te)
+
+    UnsupervisedExperiment.train = timed_epoch
     for obj, attr in counters:
         setattr(obj, attr, 0)
-    x_dev = torch.as_tensor(batch, device=dev)
-    noise = torch.Generator().manual_seed(3)
-    losses, step_ms = [], []
-    for _ in range(TRAIN_STEPS):
-        before = [getattr(obj, attr) for obj, attr in counters]
-        ts = time.perf_counter()
-        metrics = train_step(mg, opt_g, x_dev, 1.0, generator=noise)
-        torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - ts))
-        delta = [getattr(obj, attr) - b
-                 for (obj, attr), b in zip(counters, before)]
-        if delta != [0, 1, 1, 1, 1]:
-            raise AssertionError(
-                f"launches in one step (K1, K2 forward, K2 backward, K3, "
-                f"K4): {delta}, expected [0, 1, 1, 1, 1]")
-        losses.append(metrics["loss"])
-    train_launches = {attr if obj is fused else f"density_{attr}":
-                      getattr(obj, attr) for obj, attr in counters}
-    losses = torch.stack(losses).cpu()
-    if not torch.isfinite(losses).all():
-        raise AssertionError(f"non-finite training loss: {losses.tolist()}")
-    train_ms = statistics.median(step_ms[2:])
-    print(f"   {TRAIN_STEPS} steps: losses {losses[0]:.4f} .. "
-          f"{losses[-1]:.4f}, all finite; launches per step: K1 0, K2 "
-          f"forward 1, K2 backward 1, K3 1, K4 1 (totals {train_launches})")
-    print(f"   ms per step (host clock, synchronised, median of steps "
-          f"3-{TRAIN_STEPS}): {train_ms:.3f}; first two "
-          f"{step_ms[0]:.3f}, {step_ms[1]:.3f}")
+    try:
+        experiment = cli_main.main([
+            "--kernel_impl", "pallas", "--data_dir", DATA_DIR,
+            "--epochs", str(CLI_EPOCHS), "--save_dir", CLI_DIR,
+            "--log_dir", os.path.join(CLI_DIR, "logs"),
+            "--ll_samples", str(LL_SAMPLES), "--ll_max_items",
+            str(LL_ITEMS)])
+    finally:
+        UnsupervisedExperiment.train = train_epoch
+    cli_launches = counts()
+    print(f"   launches in the CLI run: {cli_launches}")
+    if min(block.launches, block.launches_backward, dens.launches,
+           dens.launches_backward) == 0 or max(
+            fused.launches, fused.launches_residuals,
+            fused.launches_backward) != 0:
+        raise AssertionError("the CLI run with --kernel_impl pallas did not "
+                             "go through K5, K6, K3 and K4 alone")
+    with open(os.path.join(CLI_DIR, "logs", "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    losses = [r["value"] for r in logged if r["tag"].endswith("_loss")]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"CLI losses: {losses}")
+    print(f"   {len(losses)} logged losses, all finite: "
+          + ", ".join(f"{r['tag']} {r['value']:.3f} (it {r['step']})"
+                      for r in logged if r["tag"].endswith("_loss")))
+    print("   seconds per epoch: " + ", ".join(f"{t:.2f}" for t in epoch_s))
+    ckpt_path = os.path.join(CLI_DIR, cli_main.CHECKPOINT)
+    ckpt = load_checkpoint(ckpt_path)
+    final_step = experiment.optimizer.count
+    ref_model = experiment.model
+    if ckpt["step"] != final_step:
+        ref_model = flagship_model(kernel_impl="pallas")
+        ref_model.load_state_dict(ckpt["model"], strict=True)
+    ref_model.eval()
+    csess = InferenceSession.from_checkpoint(
+        ckpt_path, flagship_model(kernel_impl="pallas"), batch_size=64)
+    fixed = random_group_matrices(
+        16, torch.Generator().manual_seed(4), device="cpu").numpy()
+    with torch.inference_mode():
+        want_img = ref_model.decode(
+            torch.as_tensor(fixed, device=dev)[None])[0]
+    before = (block.launches, fused.launches)
+    got_img = csess.decode(fixed)
+    if (block.launches - before[0], fused.launches - before[1]) != (1, 0):
+        raise AssertionError("a decode chunk of the served checkpoint did "
+                             "not launch K5 once and K1 never")
+    d_ckpt = np.abs(got_img - want_img.cpu().numpy()).max()
+    source = "experiment" if ref_model is experiment.model else "checkpoint"
+    print(f"   best checkpoint: step {ckpt['step']} of {final_step}; "
+          f"InferenceSession.from_checkpoint decodes 16 fixed poses (one "
+          f"chunk, one launch of K5) within {d_ckpt:.3e} of the {source}'s "
+          "model")
+    if not d_ckpt <= 1e-5:
+        raise AssertionError("the served checkpoint decodes otherwise than "
+                             "the experiment's model")
+    ll = experiment.last_ll
+    if ll is None or len(ll["items"]) != LL_ITEMS:
+        raise AssertionError(f"IW-LL items: {ll}")
+    gap = ll["items"] - ll["mean_log_weights"]
+    if not (np.isfinite(ll["items"]).all() and (gap >= 0).all()):
+        raise AssertionError(f"IW-LL {ll['items']} against the mean "
+                             f"log-weights {ll['mean_log_weights']}")
+    print(f"   IW-LL over {LL_ITEMS} items, n={LL_SAMPLES}: mean "
+          f"{ll['items'].mean():.3f}, each finite and above the mean of its "
+          f"own log-weights by {gap.min():.3f} .. {gap.max():.3f}")
     done(t0)
 
     k64, p64, b64, by64 = timing[64]
     k4k, p4k, b4k, _ = timing[4096]
     src_chain = "lie_vae_tpu_torch/csrc/wigner_chain.cu"
     src_dens = "lie_vae_tpu_torch/csrc/so3_density.cu"
+    src_block = "lie_vae_tpu_torch/csrc/wigner_block.cu"
+    train_launches = train_runs["fused"][3]
     kernels = [{
         "name": "wigner_chain_fwd", "route": "cuda", "source": src_chain,
         "replaces": "lie_vae_tpu/ops/kernels/wigner_fused.py:127",
@@ -657,21 +972,36 @@ def main():
             ("so3_density_bwd", src_dens,
              "lie_vae_tpu/ops/kernels/so3_density.py:57", d_timing,
              d_err["bwd"], "density_launches_backward", "N=B=64 k=10",
-             4096)):
+             4096),
+            ("wigner_block_fwd", src_block,
+             "lie_vae_tpu/ops/kernels/wigner_block.py:54", k5_timing,
+             k5_err["fwd"], "block_launches", "B=64 L=6 C=10 shared", 4096),
+            ("wigner_block_bwd", src_block,
+             "lie_vae_tpu/ops/kernels/wigner_block.py:85", k5_timing,
+             k5_err["bwd"], "block_launches_backward",
+             "B=64 L=6 C=10 shared", 4096)):
         back = name.endswith("bwd")
         small, large = tim[64], tim[big]
         ms, plain_ms, (bound, bound_by) = small[3:] if back else small[:3]
         ms_l, plain_l, (bound_l, _) = large[3:] if back else large[:3]
+        launches_main = (cli_launches if name.startswith("wigner_block")
+                         else train_launches)[launch_key]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": train_launches[launch_key],
+            "replaces": replaces, "launches": launches_main,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
             "shape": shape, f"ms_b{big}": ms_l,
             f"plain_ms_b{big}": plain_l, f"bound_ms_b{big}": bound_l})
     record = {"kernels": kernels, "build_s": build_s, "request_ms": req_ms,
-              "train_step_ms": train_ms, "train_step_ms_first": step_ms[:2],
-              "train_loss": [float(losses[0]), float(losses[-1])],
+              "render_s": render_s,
+              "train_step_ms": train_runs["fused"][0],
+              "train_step_ms_pallas": train_runs["pallas"][0],
+              "train_step_ms_first": train_runs["fused"][1],
+              "train_loss": [float(train_runs["fused"][2][0]),
+                             float(train_runs["fused"][2][-1])],
+              "cli_epoch_s": epoch_s,
+              "cli_ll": float(ll["items"].mean()),
               "total_s": time.perf_counter() - t_start}
     print(json.dumps(record))
     print(card)

@@ -6,8 +6,8 @@ shells theta_hat = theta + 2 pi j, j in [-k, k], the density evaluates the
 algebra Gaussian at u theta_hat (u = v / |v|) and adds the exp-map volume
 term log(theta_hat^2 / (2 - 2 cos theta_hat)), then takes a logsumexp over
 the shells. :func:`so3_wrapped_log_density` runs that plain version on CPU
-tensors and the CUDA kernel with its backward kernel
-(``ops/kernels/so3_density.py``) on CUDA tensors.
+tensors and, unless asked for ``impl='xla'``, the CUDA kernel with its
+backward kernel (``ops/kernels/so3_density.py``) on CUDA tensors.
 """
 import dataclasses
 import math
@@ -25,11 +25,13 @@ LOG_HAAR_UNIFORM = -math.log(8.0 * math.pi ** 2)
 class SO3Stats:
     """mu_lie (B, 3, 3) mean rotation; inner: the algebra noise, sigma
     (B, 3) and v = inner.z (n, B, 3); z (n, B, 3, 3) group samples;
-    k the shell truncation of the density."""
+    k the shell truncation of the density; density_impl its
+    implementation (:func:`so3_wrapped_log_density`)."""
     mu_lie: torch.Tensor
     inner: ZeroMeanGaussianStats
     z: torch.Tensor
     k: int = 10
+    density_impl: str = "fused"
 
     def kl(self):
         """MC estimate E_q[log q - log p], mean over the sample axis, (B,)."""
@@ -37,7 +39,8 @@ class SO3Stats:
 
     def log_posterior(self):
         """Wrapped pushforward log-density at the drawn samples, (n, B)."""
-        return so3_wrapped_log_density(self.inner.z, self.inner.sigma, self.k)
+        return so3_wrapped_log_density(self.inner.z, self.inner.sigma, self.k,
+                                       impl=self.density_impl)
 
     def log_prior(self):
         """Haar-uniform prior: the constant -log(8 pi^2), (n, B)."""
@@ -65,23 +68,34 @@ def so3_wrapped_log_density_plain(v, sigma, k=10, clamp=1e-3):
     return torch.logsumexp(log_p + log_vol, dim=-1)
 
 
-def so3_wrapped_log_density(v, sigma, k=10, clamp=1e-3):
+def so3_wrapped_log_density(v, sigma, k=10, clamp=1e-3, impl="fused"):
     """log q(exp(v)) for the pushforward of N(0, diag(sigma^2)) to SO(3):
-    v (n, B, 3), sigma (B, 3) -> (n, B). CPU tensors take the plain
-    version; CUDA tensors the density kernel, whose backward is a kernel
-    too (``ops/kernels/so3_density.py`` routes both)."""
+    v (n, B, 3), sigma (B, 3) -> (n, B).
+
+    impl: 'fused', 'pallas' or 'auto' (the density kernel K3, whose
+    backward is the kernel K4, on CUDA tensors; the plain version on CPU
+    tensors: ``ops/kernels/so3_density.py`` routes both) | 'xla' (the plain
+    version on any device)."""
+    if impl not in ("fused", "pallas", "auto", "xla"):
+        raise ValueError(f"unknown so3 density impl {impl!r} (expected "
+                         "'fused', 'pallas', 'auto' or 'xla')")
+    if impl == "xla":
+        return so3_wrapped_log_density_plain(v, sigma, k, clamp)
     from lie_vae_tpu_torch.ops.kernels.so3_density import (
         so3_wrapped_log_density_fused)
     return so3_wrapped_log_density_fused(v, sigma, k, clamp)
 
 
-def sample_so3(mu_lie, sigma, n=1, k=10, eps=None, generator=None):
+def sample_so3(mu_lie, sigma, n=1, k=10, eps=None, generator=None,
+               density_impl="fused"):
     """Draw n group samples z = mu_lie @ exp(eps * sigma).
 
     ``eps`` (n, B, 3) standard normal fixes the noise; otherwise it is
-    drawn from ``generator``. ``k`` is the density's shell truncation.
+    drawn from ``generator``. ``k`` is the density's shell truncation and
+    ``density_impl`` its implementation.
     """
     inner = sample_zero_mean_gaussian(sigma, n=n, eps=eps,
                                       generator=generator)
     z = mu_lie @ so3_ops.expmap(inner.z)                 # (n, B, 3, 3)
-    return SO3Stats(mu_lie=mu_lie, inner=inner, z=z, k=k)
+    return SO3Stats(mu_lie=mu_lie, inner=inner, z=z, k=k,
+                   density_impl=density_impl)

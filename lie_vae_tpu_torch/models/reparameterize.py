@@ -69,9 +69,11 @@ class N0Reparameterize(nn.Module):
 class SO3Reparameterize(nn.Module):
     """Mean rotation from a mean head, sigma = max(softplus(.), 1e-6)
     (optionally clamped above at ``sigma_clamp``), z = mu @ exp(eps sigma);
-    ``k`` wrapping shells for the posterior density."""
+    ``k`` wrapping shells for the posterior density, computed by
+    ``density_impl`` (``distributions.so3_wrapped_log_density``)."""
 
-    def __init__(self, in_dims, mean_mode="s2s2", sigma_clamp=None, k=10):
+    def __init__(self, in_dims, mean_mode="s2s2", sigma_clamp=None, k=10,
+                 density_impl="fused"):
         super().__init__()
         if mean_mode not in MEAN_MODULES:
             raise NotImplementedError(
@@ -81,6 +83,7 @@ class SO3Reparameterize(nn.Module):
         self.reparameterize = N0Reparameterize(in_dims)
         self.sigma_clamp = sigma_clamp
         self.k = k
+        self.density_impl = density_impl
 
     def forward(self, h, n=1, eps=None, generator=None):
         mu_lie = self.mean_module(h)
@@ -89,4 +92,5 @@ class SO3Reparameterize(nn.Module):
         if self.sigma_clamp is not None:
             sigma = torch.clamp(sigma, max=self.sigma_clamp)
         return dist.sample_so3(mu_lie, sigma, n=n, k=self.k, eps=eps,
-                               generator=generator)
+                               generator=generator,
+                               density_impl=self.density_impl)

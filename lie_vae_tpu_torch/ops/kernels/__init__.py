@@ -4,3 +4,5 @@ from lie_vae_tpu_torch.ops.kernels.so3_density import (  # noqa: F401
     so3_wrapped_log_density_fused)
 from lie_vae_tpu_torch.ops.kernels.wigner_fused import (  # noqa: F401
     block_wigner_matrix_multiply_fused)
+from lie_vae_tpu_torch.ops.kernels.wigner_block import (  # noqa: F401
+    block_wigner_matrix_multiply_pallas)

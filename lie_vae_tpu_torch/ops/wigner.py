@@ -11,7 +11,7 @@ copy of the JAX package's asset) and ``Z(t)`` the sparse real z-rotation,
 - :func:`block_wigner_apply_zjz` applies the chain to a spectrum without
   forming W, and is the plain version the CUDA kernel is held against;
 - :func:`block_wigner_matrix_multiply` dispatches between them and the
-  kernel (``ops/kernels/wigner_fused.py``).
+  kernels (``ops/kernels/wigner_fused.py``, ``ops/kernels/wigner_block.py``).
 """
 import functools
 import os
@@ -166,24 +166,26 @@ def block_wigner_matrix_multiply(angles, spectrum, max_degree,
     """Rotate a direct-sum spectrum by the group elements given as ZYZ
     angles: (B, 3) x [(S, C) | (B, S, C)] -> (B, S, C).
 
-    impl: 'fused' (the CUDA kernel on a CUDA tensor, the plain chain on a
-    CPU tensor) | 'auto' (the same routing) | 'zjz' (the plain chain) |
-    'dense' (form W, then one batched product) | 'pallas' (not ported).
+    impl: 'fused' (the chain kernels K1/K2 on a CUDA tensor, the plain
+    chain on a CPU tensor) | 'auto' (the same routing) | 'pallas' (the
+    synthesise-then-apply kernels K5/K6 on a CUDA tensor, their plain
+    version on a CPU tensor) | 'zjz' or its alias 'xla' (the plain chain) |
+    'dense' (form W, then one batched product).
     """
-    if impl not in ("fused", "auto", "zjz", "dense", "pallas"):
+    if impl not in ("fused", "auto", "pallas", "zjz", "xla", "dense"):
         raise ValueError(f"unknown wigner impl {impl!r} (expected 'fused', "
-                         "'auto', 'zjz', 'dense' or 'pallas')")
-    if impl == "pallas":
-        raise NotImplementedError(
-            "impl='pallas' (the per-sample synthesize-then-apply kernel, "
-            "lie_vae_tpu/ops/kernels/wigner_block.py) is not ported yet: "
-            "ROADMAP.md, Queue B, kernels K5/K6")
+                         "'auto', 'pallas', 'zjz', 'xla' or 'dense')")
     if impl in ("fused", "auto"):
         from lie_vae_tpu_torch.ops.kernels.wigner_fused import (
             block_wigner_matrix_multiply_fused)
         return block_wigner_matrix_multiply_fused(
             angles, spectrum, max_degree, transpose=transpose)
-    if impl == "zjz":
+    if impl == "pallas":
+        from lie_vae_tpu_torch.ops.kernels.wigner_block import (
+            block_wigner_matrix_multiply_pallas)
+        return block_wigner_matrix_multiply_pallas(
+            angles, spectrum, max_degree, transpose=transpose)
+    if impl in ("zjz", "xla"):
         return block_wigner_apply_zjz(angles, spectrum, max_degree,
                                       transpose=transpose)
     W = block_wigner_matrix(angles, max_degree, dtype=spectrum.dtype)

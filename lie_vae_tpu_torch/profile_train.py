@@ -1,19 +1,21 @@
 """Where a training step's time goes on the card.
 
     python -m lie_vae_tpu_torch.profile_train [--steps 20] [--batch 64]
+        [--kernel_impl fused|pallas]
 
 Trains the flagship model as ``bench.py`` does (sigma clamp pi * 10 / 2,
 lr 1e-3, clip 1e-5, beta 1; float32 throughout, TF32 off) from the
 converged reference weights (``converged_state/torch_clean/best.pt``) on
-the first CUDA device, on one batch of uint8 images that a serving session
-decodes from Haar-random poses. After two warm-up steps it profiles
-``steps`` steps with ``torch.profiler`` and prints the host ms per step,
-the device's busy share of it (kernels and copies, overlaps merged; the
-rest is the idle share), the device us per step of the costliest device
-items and of the port's own kernels (the Wigner chain and the SO(3)
-density), and their sum. Then it profiles each training kernel alone at
-the batch's shape and at B = 4096. The trace files go to
-``build/profile/``.
+the first CUDA device, on one batch of uint8 sphere-cube renders (the
+first poses of ``data_poses/spherecube.npz``, rendered by the port), with
+the Lie-group kernels of ``--kernel_impl``. After two warm-up steps it
+profiles ``steps`` steps with ``torch.profiler`` and prints the host ms per
+step, the device's busy share of it (kernels and copies, overlaps merged;
+the rest is the idle share), the device us per step of the costliest
+device items and of the port's own kernels (the Wigner chain, the
+synthesise-then-apply Wigner product and the SO(3) density), and their
+sum. Then it profiles each kernel of that path alone at the batch's shape
+and at B = 4096. The trace files go to ``build/profile/``.
 """
 import argparse
 import math
@@ -24,23 +26,26 @@ import numpy as np
 import torch
 
 from lie_vae_tpu_torch import compat
+from lie_vae_tpu_torch.cli.gen_spherecube import POSE_SETS_DIR, render_images
 from lie_vae_tpu_torch.models import flagship_model
 from lie_vae_tpu_torch.ops import group_matrix_to_eazyz, random_group_matrices
-from lie_vae_tpu_torch.ops.kernels import so3_density, wigner_fused
+from lie_vae_tpu_torch.ops.kernels import (so3_density, wigner_block,
+                                           wigner_fused)
 from lie_vae_tpu_torch.profile_serve import profile_request
-from lie_vae_tpu_torch.serve import InferenceSession
 from lie_vae_tpu_torch.train import make_optimizer, train_step
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CHECKPOINT = os.path.join(_ROOT, "converged_state", "torch_clean",
                            "best.pt")
-_KERNELS = ("wigner_chain", "so3_density")
+_KERNELS = ("wigner_chain", "wigner_block", "so3_density")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--kernel_impl", default="fused",
+                    choices=["fused", "pallas"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
@@ -54,10 +59,10 @@ def main(argv=None):
           f"torch {torch.__version__}")
 
     weights = compat.load_torch(_CHECKPOINT)
-    sess = InferenceSession(flagship_model(), weights, batch_size=args.batch)
-    batch = (np.clip(sess.sample(args.batch, seed=1), 0.0, 1.0) * 255.0) \
-        .round().astype(np.uint8)
-    model = flagship_model(sigma_clamp=math.pi * 10 / 2)
+    with np.load(os.path.join(POSE_SETS_DIR, "spherecube.npz")) as f:
+        batch = render_images(f["r"][:args.batch, 0])
+    model = flagship_model(sigma_clamp=math.pi * 10 / 2,
+                           kernel_impl=args.kernel_impl)
     model.load_state_dict(weights, strict=True)
     opt = make_optimizer(model.named_parameters(), lr=1e-3, clip_grads=1e-5)
     x = torch.as_tensor(batch, device="cuda")
@@ -67,7 +72,8 @@ def main(argv=None):
         train_step(model, opt, x, 1.0, generator=noise)
 
     step()
-    per_step = profile_request("train_step", step, args.steps, out_dir,
+    per_step = profile_request(f"train_step_{args.kernel_impl}", step,
+                               args.steps, out_dir,
                                unit=f"step of {args.batch}", watch=_KERNELS)
     ours = sum(us for name, us in per_step.items()
                if any(w in name for w in _KERNELS))
@@ -80,15 +86,25 @@ def main(argv=None):
         angles = group_matrix_to_eazyz(random_group_matrices(
             B, generator=gen, device="cpu").cuda()).contiguous()
         dout = torch.randn((B, 49, 10), generator=gen).cuda()
-        _, y, z = wigner_fused._launch_residuals(angles, item_rep, 6)
         sigma = torch.rand((B, 3), generator=gen).cuda() + 0.1
         v = (torch.randn((B, 3), generator=gen).cuda() * sigma).contiguous()
         g = torch.randn((B,), generator=gen).cuda()
-        for name, fn in (
+        if args.kernel_impl == "fused":
+            _, y, z = wigner_fused._launch_residuals(angles, item_rep, 6)
+            wigner = (
                 ("wigner_chain_fwd_res", lambda: wigner_fused
                  ._launch_residuals(angles, item_rep, 6)),
                 ("wigner_chain_bwd", lambda: wigner_fused._launch_backward(
-                    angles, item_rep, y, z, dout, 6, True)),
+                    angles, item_rep, y, z, dout, 6, True)))
+        else:
+            feats = [f.contiguous()
+                     for f in wigner_block.trig_features(angles, 6)]
+            wigner = (
+                ("wigner_block_fwd", lambda: wigner_block._launch(
+                    *feats, item_rep, 6, False)),
+                ("wigner_block_bwd", lambda: wigner_block._launch_backward(
+                    *feats, item_rep, dout, 6, False, True)))
+        for name, fn in wigner + (
                 ("so3_density_fwd", lambda: so3_density._launch_fwd(
                     v, sigma, 10, 1e-3)),
                 ("so3_density_bwd", lambda: so3_density._launch_bwd(

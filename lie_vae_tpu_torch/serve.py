@@ -43,6 +43,15 @@ class InferenceSession:
                    seed=seed, device=device)
 
     @classmethod
+    def from_checkpoint(cls, path, model, batch_size=64, seed=0,
+                        device="cuda"):
+        """Serve the model of a training checkpoint
+        (``train.checkpoint.save_state``)."""
+        from lie_vae_tpu_torch.train.checkpoint import load_checkpoint
+        return cls(model, load_checkpoint(path)["model"],
+                   batch_size=batch_size, seed=seed, device=device)
+
+    @classmethod
     def from_npz(cls, path, model, batch_size=64, seed=0, device="cuda"):
         """Serve a JAX deployment artifact (``.npz`` of flat paths)."""
         return cls(model, compat.state_dict_from_jax(compat.load_npz(path),

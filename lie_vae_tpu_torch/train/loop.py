@@ -1,22 +1,43 @@
-"""One train step of the ELBO.
+"""Training harness: one train step of the ELBO, and the experiment that
+runs epochs of it with evaluation, reports and the importance-weighted
+log-likelihood.
 
-Counterpart of ``UnsupervisedExperiment._build_train_step`` in the JAX
-package's ``train/loop.py`` (and of ``bench.py``'s step): uint8 images are
-scaled to [0, 1] on the device; the model runs in train mode (BatchNorm on
-batch statistics, running statistics updated); the loss is the mean
+:func:`train_step` is the counterpart of
+``UnsupervisedExperiment._build_train_step`` in the JAX package's
+``train/loop.py`` (and of ``bench.py``'s step): uint8 images are scaled to
+[0, 1] on the device; the model runs in train mode (BatchNorm on batch
+statistics, running statistics updated); the loss is the mean
 reconstruction error plus beta times the mean KL, or one of the ``control``
 forms; the optimizer (``train/state.py``) applies the gradients. At
 beta == 0 the KL is not computed at all, as the reference's Python branch
 skips it: a zero weight on a NaN KL would still put NaN into the shared
-gradients. The equivariance and continuity regularizers are not ported
-yet. Epochs, evaluation, the importance-weighted log-likelihood and
-checkpoints are the harness's (ROADMAP.md, Queue A, A3).
+gradients. The equivariance and continuity regularizers are not ported yet
+(ROADMAP.md, Queue A, A6).
+
+:class:`UnsupervisedExperiment` is the counterpart of the JAX class of the
+same name (reference: ``lie_vae/experiments/unsupervised.py:11-156``), with
+its constructor's keywords, its per-step beta schedule, its report cadence,
+tags and printed line, its sigma-max monitor, its ``test()`` and its
+``log_likelihood``. PyTorch runs eagerly, so there is nothing to compile
+and no padding: a ragged evaluation batch is evaluated as it is.
 """
+import math
+import os
+import time
+
+import numpy as np
 import torch
 
+from lie_vae_tpu_torch.data.loader import BatchLoader
+from lie_vae_tpu_torch.train.checkpoint import apply_state
+from lie_vae_tpu_torch.train.logging import MetricWriter
+from lie_vae_tpu_torch.train.state import make_optimizer
 
-def _normalize(x):
-    return x.to(torch.float32) / 255.0 if x.dtype == torch.uint8 else x
+
+def _normalize(x, dtype=torch.float32):
+    """uint8 images to [0, 1] in ``dtype`` (the model's); others as they
+    are."""
+    return x.to(dtype) / 255.0 if x.dtype == torch.uint8 else x
 
 
 def train_step(model, optimizer, x, beta, eps=None, generator=None,
@@ -24,7 +45,7 @@ def train_step(model, optimizer, x, beta, eps=None, generator=None,
                monitor_sigma=False, equivariance_lamb=None,
                encoder_continuity_lamb=None):
     """One optimizer step on the batch ``x`` (NHWC, uint8 or float, moved
-    to the model's device). ``eps`` (elbo_samples, B, 3) fixes the
+    to the model's device; uint8 scaled to [0, 1] in the model's dtype). ``eps`` (elbo_samples, B, 3) fixes the
     posterior noise; otherwise ``generator`` draws it. ``beta`` is a Python
     number. Returns the metrics as detached 0-dim tensors: ``recon``,
     ``kl``, ``kls`` (a list, one per latent), ``loss`` and, with
@@ -36,8 +57,9 @@ def train_step(model, optimizer, x, beta, eps=None, generator=None,
             "yet (ROADMAP.md, Queue A, A6)")
     if control is not None and control_p not in (1, 2):
         raise ValueError("Wrong control p")
-    device = next(model.parameters()).device
-    x = _normalize(torch.as_tensor(x, device=device))
+    param = next(model.parameters())
+    device = param.device
+    x = _normalize(torch.as_tensor(x, device=device), param.dtype)
     model.train()
     optimizer.zero_grad()
     x_recon, stats = model(x, n=elbo_samples, eps=eps, generator=generator)
@@ -64,3 +86,304 @@ def train_step(model, optimizer, x, beta, eps=None, generator=None,
     if monitor_sigma:
         metrics["sigma_max"] = torch.max(stats[0].inner.sigma).detach()
     return metrics
+
+
+class UnsupervisedExperiment:
+    """Epochs of :func:`train_step` over ``train_dataset``, evaluated on
+    ``test_dataset``. Reference constructor surface: unsupervised.py:18-56,
+    the JAX class's keywords.
+
+    The model is trained as it is passed in (its weights are the start;
+    ``init_state``, a ``train.checkpoint.load_checkpoint`` dict, replaces
+    them and the optimizer's state), on its own device. The posterior noise
+    of training, evaluation and the IW-LL comes from three CPU
+    ``torch.Generator``s seeded from ``seed`` (so a run on the card and one
+    on the CPU with the same seed draw the same numbers), the training
+    order from ``BatchLoader`` with ``seed`` as the JAX harness's.
+
+    ``steps_per_call`` groups steps as the JAX harness scans them (reports
+    land on the first group boundary at or after ``report_freq``); the steps
+    of a group run one at a time, each with its own beta, as in the scan.
+    ``device_data`` keeps each dataset's uint8 images on the model's device
+    and gathers batches there. ``mesh`` (data parallelism, ROADMAP.md,
+    Queue A, A9) and the equivariance and continuity losses (A6) raise.
+    """
+
+    def __init__(self, *, model, train_dataset, test_dataset, beta_schedule,
+                 lr=1e-3, weight_decay=0.0, elbo_samples=1, report_freq=1250,
+                 clip_grads=1e-5, selective_clip=False, batch_size=64,
+                 equivariance_lamb=None, encoder_continuity_lamb=None,
+                 control=None, control_p=1, log=None, seed=0, mesh=None,
+                 log_histograms=False, init_state=None, steps_per_call=1,
+                 device_data=False, equivariance_rotate="shear"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "data-parallel training over a mesh is not ported yet "
+                "(ROADMAP.md, Queue A, A9)")
+        if equivariance_lamb is not None \
+                or encoder_continuity_lamb is not None:
+            raise NotImplementedError(
+                "the equivariance and encoder-continuity losses are not "
+                "ported yet (ROADMAP.md, Queue A, A6)")
+        if equivariance_rotate not in ("shear", "gather"):
+            raise ValueError(f"unknown equivariance_rotate "
+                             f"{equivariance_rotate!r}")
+        if control is not None and control_p not in (1, 2):
+            raise ValueError("Wrong control p")
+        self.model = model
+        self.device = next(model.parameters()).device
+        self.dtype = next(model.parameters()).dtype
+        self.control = control
+        self.control_p = control_p
+        self.beta_schedule = beta_schedule
+        self.train_dataset = train_dataset
+        self.test_dataset = test_dataset
+        self.elbo_samples = elbo_samples
+        self.report_freq = report_freq
+        self.log = log if isinstance(log, MetricWriter) else MetricWriter(log)
+        self.log_histograms = log_histograms
+        self.best_value = np.inf
+        self.steps_per_call = max(1, int(steps_per_call))
+        self.optimizer = make_optimizer(
+            model.named_parameters(), lr=lr, weight_decay=weight_decay,
+            clip_grads=clip_grads, selective_clip=selective_clip)
+        if init_state is not None:
+            apply_state(init_state, model, self.optimizer)
+        self.train_loader = BatchLoader(train_dataset, batch_size,
+                                        shuffle=True, drop_last=True,
+                                        seed=seed)
+        self.test_loader = BatchLoader(test_dataset, batch_size,
+                                       shuffle=False, drop_last=False)
+        self._gens = {
+            stream: torch.Generator().manual_seed(int(
+                np.random.SeedSequence([seed, i]).generate_state(1)[0]))
+            for i, stream in enumerate(("train", "eval", "ll"))}
+        # SO(3) posterior-drift monitor: the k-shell wrapped density is only
+        # valid while sigma stays below about pi * k / 2 (JAX harness,
+        # train/loop.py): past it the MC KL and the IW-LL are biased
+        self._monitor_sigma = getattr(model, "latent_mode", None) == "so3"
+        self._sigma_valid_bound = (
+            math.pi * getattr(model, "density_k", 10) / 2.0)
+        self._window = []
+        self._device_train = self._device_test = None
+        if device_data:
+            self._device_train = self._cache_device(train_dataset)
+            self._device_test = (self._device_train
+                                 if test_dataset is train_dataset
+                                 else self._cache_device(test_dataset))
+        self.last_ll = None
+
+    def _cache_device(self, dataset):
+        """The dataset's uint8 images, all of them, on the model's device."""
+        images = dataset.prep_batch(dataset.gather(np.arange(len(dataset))))
+        return torch.as_tensor(np.asarray(images[-1]), device=self.device)
+
+    def _eps(self, stream, n, batch):
+        """Standard normal posterior noise (n, batch, 3) from the stream's
+        generator, on the model's device in its dtype."""
+        return torch.randn((n, batch, 3), generator=self._gens[stream]).to(
+            self.device, self.dtype)
+
+    def _batches(self, loader, cached):
+        """The loader's batches of uint8 images: host arrays, or device
+        tensors gathered from the cached dataset by the same indices."""
+        if cached is None:
+            return (np.asarray(b[-1]) for b in loader)
+        batches = loader._index_batches()
+        loader.epoch += 1
+        return (cached[torch.as_tensor(idx, device=self.device)]
+                for idx in batches)
+
+    # -------------------------------------------------------------- eval
+
+    @torch.no_grad()
+    def test(self):
+        """Full pass over the evaluation loader in eval mode; returns the
+        (recon, kl, *kls) means as float64 numpy: per batch the mean over
+        its rows, then uniform over batches, the ragged tail included (the
+        reference's semantics, unsupervised.py:58-67)."""
+        self.model.eval()
+        vals = []
+        for x in self._batches(self.test_loader, self._device_test):
+            x = _normalize(torch.as_tensor(x, device=self.device),
+                           self.dtype)
+            recon, kl_sum, kls, _ = self.model.elbo(
+                x, n=self.elbo_samples,
+                eps=self._eps("eval", self.elbo_samples, x.shape[0]))
+            vals.append(torch.stack([torch.mean(recon), torch.mean(kl_sum)]
+                                    + [torch.mean(k) for k in kls]))
+        self.model.train()
+        if not vals:
+            raise RuntimeError(
+                "test(): evaluation loader produced no batches - test "
+                "metrics and best_value would silently become NaN. Check "
+                "the validation split size.")
+        return torch.stack(vals).double().mean(0).cpu().numpy()
+
+    # ------------------------------------------------------------- train
+
+    def train(self, epoch):
+        """One epoch. Reference: unsupervised.py:69-156 (same reporting
+        cadence, tags and printed line)."""
+        num_batches = len(self.train_loader)
+        K = self.steps_per_call
+        steps_since_report = 0
+        start = time.time()
+        group = []
+        batches = self._batches(self.train_loader, self._device_train)
+        for it, x in enumerate(batches):
+            group.append((epoch * num_batches + it + 1, x))
+            if len(group) < K and it + 1 < num_batches:
+                continue
+            for global_it, xb in group:
+                beta = self.beta_schedule(global_it)
+                metrics = train_step(
+                    self.model, self.optimizer, xb, beta,
+                    eps=self._eps("train", self.elbo_samples, xb.shape[0]),
+                    elbo_samples=self.elbo_samples, control=self.control,
+                    control_p=self.control_p,
+                    monitor_sigma=self._monitor_sigma)
+                self._window.append(metrics)
+            steps_since_report += len(group)
+            if steps_since_report >= self.report_freq \
+                    or it + 1 == num_batches:
+                self._report(epoch, it, group[-1][0], beta, start,
+                             n_steps=steps_since_report)
+                steps_since_report = 0
+                start = time.time()
+            group = []
+
+    def _report(self, epoch, it, global_it, beta, start, n_steps):
+        # one device->host transfer of the window's metrics; every step in
+        # the window weighs the same
+        names = ["recon", "kl"] + (["sigma_max"] if self._monitor_sigma
+                                   else [])
+        sums = torch.stack([torch.stack([m[k] for k in names])
+                            for m in self._window]).double().sum(0)
+        means = dict(zip(names, (sums / len(self._window)).tolist()))
+        self._window = []
+        train_recon, train_kl = means["recon"], means["kl"]
+        if np.isnan(train_kl):
+            raise RuntimeError("NaN KL")
+
+        self.log.add_scalar("train_loss", train_recon + beta * train_kl,
+                            global_it)
+        self.log.add_scalar("train_recon", train_recon, global_it)
+        self.log.add_scalar("train_kl", train_kl, global_it)
+        if self._monitor_sigma:
+            sigma_max = means["sigma_max"]
+            self.log.add_scalar("sigma_max", sigma_max, global_it)
+            if sigma_max > self._sigma_valid_bound:
+                print(f"WARNING: posterior sigma_max {sigma_max:.1f} exceeds "
+                      f"the wrapped-density validity bound "
+                      f"~{self._sigma_valid_bound:.1f} for its shell count: "
+                      "reported KL (and a final IW-LL) are truncation-biased"
+                      " - re-evaluate the checkpoint with a larger "
+                      "density_k")
+
+        test_vals = self.test()
+        test_recon, test_kl = float(test_vals[0]), float(test_vals[1])
+        self.best_value = min(self.best_value, test_recon)
+        self.log.add_scalar("test_loss", test_recon + beta * test_kl,
+                            global_it)
+        self.log.add_scalar("test_recon", test_recon, global_it)
+        self.log.add_scalar("test_kl", test_kl, global_it)
+        self.log.add_scalar("beta", beta, global_it)
+        if self.log_histograms:
+            for name, p in self.model.named_parameters():
+                self.log.add_histogram(name, p.detach().cpu().numpy(),
+                                       global_it)
+        self.log.flush()
+
+        dt = (time.time() - start) / max(n_steps, 1)
+        print(("Epoch {} it {} train recon {:.4f} kl {:.4f}"
+               " test recon {:.4f} kl {:.4f} ({:.3f}s)")
+              .format(epoch, it + 1, train_recon, train_kl,
+                      test_recon, test_kl, dt))
+
+    # --------------------------------------------------------- profiling
+
+    def profile(self, log_dir, n_calls=3):
+        """Trace ``n_calls`` training steps on the first batch with
+        ``torch.profiler`` (after one untraced step) into
+        ``log_dir/trace.json`` (chrome trace format). The steps update the
+        model, as the JAX harness's profiled steps do."""
+        x = next(iter(self._batches(self.train_loader, self._device_train)))
+        beta = float(self.beta_schedule(1))
+
+        def step():
+            train_step(self.model, self.optimizer, x, beta,
+                       eps=self._eps("train", self.elbo_samples, x.shape[0]),
+                       elbo_samples=self.elbo_samples, control=self.control,
+                       control_p=self.control_p)
+
+        step()
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(n_calls):
+                step()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        os.makedirs(log_dir, exist_ok=True)
+        path = os.path.join(log_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        print(f"profiler trace written to {path}")
+
+    # ---------------------------------------------------- log-likelihood
+
+    @torch.no_grad()
+    def log_likelihood(self, dataset, n=500, max_items=None, batch_size=1,
+                       n_chunk=None, return_items=False):
+        """Importance-sampled LL over a dataset, in eval mode.
+
+        Reference: main.py:134-143 (n=500, batch 1, eval mode). Items are
+        evaluated ``batch_size`` at a time (the estimate is per item, so
+        batching is exact) in the loader's seeded shuffled order; the n
+        samples are drawn in chunks of ``n_chunk`` whose logsumexps are
+        merged in float64, then - log n. ``self.last_ll`` keeps the
+        per-item estimates and the per-item mean of the same log-weights
+        (by Jensen's inequality no estimate can lie below it).
+        """
+        if n_chunk is None:
+            n_chunk = n if batch_size == 1 else max(1, min(n, 50))
+        chunks = max(1, -(-n // n_chunk))
+        n_chunk = -(-n // chunks)
+        n_eff = chunks * n_chunk
+        if n_eff != n:
+            print(f"log_likelihood: n={n} not divisible into {chunks} "
+                  f"chunks; using n={n_eff} importance samples")
+        self.model.eval()
+        loader = BatchLoader(dataset, batch_size, shuffle=True,
+                             drop_last=False)
+        items, mean_w, seen = [], [], 0
+        for batch in loader:
+            if max_items is not None and seen >= max_items:
+                break
+            x = np.asarray(batch[-1])
+            if max_items is not None:
+                x = x[:max_items - seen]
+            x = _normalize(torch.as_tensor(x, device=self.device),
+                           self.dtype)
+            lses, sums = [], 0.0
+            for _ in range(chunks):
+                w = self.model.log_weights(
+                    x, n=n_chunk,
+                    eps=self._eps("ll", n_chunk, x.shape[0])).double()
+                lses.append(torch.logsumexp(w, dim=0))
+                sums = sums + w.sum(0)
+            lse = torch.logsumexp(torch.stack(lses), dim=0)
+            items.append((lse - math.log(n_eff)).cpu())
+            mean_w.append((sums / n_eff).cpu())
+            seen += x.shape[0]
+        self.model.train()
+        if not items:                 # empty dataset / max_items=0
+            self.last_ll = None
+            return float("nan")
+        items = torch.cat(items).numpy()
+        self.last_ll = {"items": items,
+                        "mean_log_weights": torch.cat(mean_w).numpy()}
+        if return_items:
+            return float(np.mean(items)), items
+        return float(np.mean(items))

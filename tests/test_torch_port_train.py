@@ -10,19 +10,27 @@
 - ``train_step`` of a small flagship-shaped model (S2xS2 mean, L = 3,
   3 copies, conv width 4, deconv width 8, RGB, BatchNorm, batch 4, 64x64
   uint8 images), training in float32, against a jitted JAX step built as
-  ``bench.py``'s (lr 1e-3, clip 1e-5, beta 1) run in float64 from the same
-  weights, which also returns the noise it drew; the port gets that noise.
-  Loss and gradients at each of 3 steps, parameters and running statistics
-  after them: loss at rtol 1e-5; a gradient tensor within
-  1e-4 * max|reference| + 1e-5 (its small elements are sums that cancel);
-  parameters and running statistics at rtol 1e-4, atol 1e-5, as
-  ``tests/test_kernels.py`` holds its kernels' training. The reference is
-  float64 because JAX's own float32 step is the less accurate one: on the
-  CPU, at the third step's state, its gradient of the first encoder
-  layers (those behind the third BatchNorm) strays by percents from its
-  float64 gradient, where the port's float32 gradient stays close to it;
+  ``bench.py``'s (lr 1e-3, clip 1e-5, beta 1) from the same weights, which
+  also returns the noise it drew; the port gets that noise. Tolerances:
+  loss at rtol 1e-5; a gradient tensor within 1e-4 * max|reference| + 1e-5
+  (its small elements are sums that cancel); parameters and running
+  statistics at rtol 1e-4, atol 1e-5, as ``tests/test_kernels.py`` holds
+  its kernels' training. The JAX step runs in float64 for 3 steps (loss and
+  gradients at each, parameters and statistics after them), and in float32
+  for the first step. The noise must be handed over in each dtype:
+  ``jax.random.normal`` draws other numbers in float32 than in float64 from
+  one key;
+- past the first step JAX's float32 trajectory is no reference at these
+  tolerances: at the states it reaches, JAX's own float64 step with the
+  same noise agrees with the port and not with it (flax's BatchNorm
+  computes the variance as E[x^2] - E[x]^2 by default, which cancels in
+  float32). So at each state of the float32 JAX trajectory, the port is
+  held against the float64 JAX step at that state with that noise
+  (ROADMAP.md, Queue C, C2);
 - beta = 0 skips the KL: zero KL, finite gradients.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -217,14 +225,13 @@ def test_selective_clip_of_nothing_raises():
 # ------------------------------------------------------------ train step
 
 
-@pytest.fixture(scope="module")
-def trajectories():
-    """STEPS steps of the JAX step and of the port's on the same weights,
-    images and noise."""
+def _trajectories(dtype):
+    """STEPS steps of the JAX step in ``dtype`` and of the port's in
+    float32 on the same weights, images and noise."""
     jmodel = JaxLieVAE(**SMALL)
     flat = models_test._flat_jax_weights(jmodel, seed=2)
     variables = jax.tree_util.tree_map(
-        lambda a: a.astype(jnp.float64), models_test._unflatten(flat))
+        lambda a: a.astype(dtype), models_test._unflatten(flat))
     tx = jstate.make_optimizer(lr=1e-3, clip_grads=1e-5)
     state = jstate.TrainState.create(params=variables["params"],
                                      batch_stats=variables["batch_stats"],
@@ -232,7 +239,7 @@ def trajectories():
 
     @jax.jit
     def step(state, x, rng):
-        x = x.astype(jnp.float64) / 255.0
+        x = x.astype(dtype) / 255.0
 
         def loss_fn(params):
             (recon, kl_sum, _, stats), mut = jmodel.apply(
@@ -250,11 +257,13 @@ def trajectories():
 
     model = _port_model(flat)
     opt = make_optimizer(model.named_parameters(), lr=1e-3, clip_grads=1e-5)
-    steps = []
+    steps, inputs = [], []
     for i in range(STEPS):
         x = _images(10 + i)
+        before = state
         state, loss, grads, eps = step(state, jnp.asarray(x),
                                        jax.random.PRNGKey(20 + i))
+        inputs.append((before, x, np.asarray(eps)))
         metrics = train_step(model, opt, torch.tensor(x), 1.0,
                              eps=torch.tensor(np.asarray(eps, np.float32)))
         grad_flat = {f"params/{k}": np.asarray(v) for k, v in
@@ -268,7 +277,17 @@ def trajectories():
     final = {f"{c}/{k}": np.asarray(v) for c, tree in
              (("params", state.params), ("batch_stats", state.batch_stats))
              for k, v in traverse_util.flatten_dict(tree, sep="/").items()}
-    return steps, state_dict_from_jax(final, model), model
+    return steps, state_dict_from_jax(final, model), model, inputs
+
+
+@pytest.fixture(scope="module")
+def trajectories():
+    return _trajectories(jnp.float64)
+
+
+@pytest.fixture(scope="module")
+def trajectories_f32():
+    return _trajectories(jnp.float32)
 
 
 @pytest.mark.parametrize("i", range(STEPS))
@@ -285,7 +304,7 @@ def test_train_step_loss_and_grads_match_jax(trajectories, i):
 
 
 def test_params_and_batch_stats_after_steps_match_jax(trajectories):
-    _, want, model = trajectories
+    want, model = trajectories[1:3]
     got = model.state_dict()
     for name, ref in want.items():
         if name.endswith("num_batches_tracked"):
@@ -293,6 +312,75 @@ def test_params_and_batch_stats_after_steps_match_jax(trajectories):
             continue
         np.testing.assert_allclose(got[name].numpy(), ref.numpy(), rtol=1e-4,
                                    atol=1e-5, err_msg=name)
+
+
+def test_first_train_step_matches_float32_jax(trajectories_f32):
+    """The port against JAX's own float32 step from the same weights, with
+    the noise JAX drew (ROADMAP.md, Queue C, C2), at the float64 test's
+    tolerances."""
+    test_train_step_loss_and_grads_match_jax(trajectories_f32, 0)
+
+
+def _flat_state(state):
+    return {f"{c}/{k}": np.asarray(v) for c, tree in
+            (("params", state.params), ("batch_stats", state.batch_stats))
+            for k, v in traverse_util.flatten_dict(tree, sep="/").items()}
+
+
+@pytest.fixture(scope="module")
+def float64_at_float32_states(trajectories_f32):
+    """The float64 JAX loss and gradients at each state of the float32 JAX
+    trajectory, with that step's float32 noise (``jax.random.normal`` is
+    replaced while the step is traced, so the noise is an argument)."""
+    jmodel = JaxLieVAE(**SMALL)
+
+    @jax.jit
+    def loss_and_grads(params, batch_stats, x, noise):
+        def loss_fn(params):
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(jax.random, "normal",
+                           lambda key, shape, dtype=None:
+                           noise.astype(dtype).reshape(shape))
+                (recon, kl_sum, _, _), _ = jmodel.apply(
+                    {"params": params, "batch_stats": batch_stats},
+                    x.astype(jnp.float64) / 255.0, n=1, train=True,
+                    method="elbo", rngs={"sample": jax.random.PRNGKey(0)},
+                    mutable=["batch_stats"])
+            return jnp.mean(recon) + 1.0 * jnp.mean(kl_sum)
+
+        return jax.value_and_grad(loss_fn)(params)
+
+    out = []
+    for state, x, eps in trajectories_f32[3]:
+        to64 = functools.partial(jax.tree_util.tree_map,
+                                 lambda a: jnp.asarray(a, jnp.float64))
+        loss, grads = loss_and_grads(to64(state.params),
+                                     to64(state.batch_stats), jnp.asarray(x),
+                                     jnp.asarray(eps, jnp.float64))
+        out.append((float(loss), grads))
+    return out
+
+
+@pytest.mark.parametrize("i", range(STEPS))
+def test_port_matches_float64_at_float32_jax_states(
+        trajectories_f32, float64_at_float32_states, i):
+    state, x, eps = trajectories_f32[3][i]
+    flat = _flat_state(state)
+    model = _port_model(flat)
+    opt = make_optimizer(model.named_parameters(), lr=1e-3, clip_grads=1e-5)
+    metrics = train_step(model, opt, torch.tensor(x), 1.0,
+                         eps=torch.tensor(eps))
+    loss, grads = float64_at_float32_states[i]
+    grad_flat = {f"params/{k}": np.asarray(v) for k, v in
+                 traverse_util.flatten_dict(grads, sep="/").items()}
+    grad_flat.update({k: v for k, v in flat.items()
+                      if k.startswith("batch_stats/")})
+    want = state_dict_from_jax(grad_flat, model)
+    assert float(metrics["loss"]) == pytest.approx(loss, rel=1e-5)
+    for name, p in model.named_parameters():
+        ref = want[name].numpy()
+        tol = 1e-4 * np.abs(ref).max() + 1e-5
+        assert np.abs(p.grad.numpy() - ref).max() <= tol, name
 
 
 def test_beta_zero_skips_the_kl(monkeypatch):

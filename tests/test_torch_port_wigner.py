@@ -1,7 +1,8 @@
 """The PyTorch port's Wigner-D ops held against the JAX package's.
 
-The port's plain chain, its dense matrix and its dispatcher, on CPU
-tensors, against the JAX package's plain chain and dense matrix (which
+The port's plain chain, its dense matrix and its dispatcher (every impl,
+``'pallas'`` being the plain version of the kernels K5/K6 on CPU tensors),
+on CPU tensors, against the JAX package's plain chain and dense matrix (which
 ``tests/test_kernels.py`` pins to the TPU kernel), over L in {0, 1, 3, 6},
 shared and per-sample spectra, transpose on and off. Tolerances: 1e-10 in
 float64 (the same sums, two libraries), 2e-5 in float32 (sums of up to 13
@@ -25,7 +26,7 @@ import jax.numpy as jnp
 
 from lie_vae_tpu import ops as jops
 from lie_vae_tpu_torch import ops as tops
-from lie_vae_tpu_torch.ops.kernels import wigner_fused
+from lie_vae_tpu_torch.ops.kernels import wigner_block, wigner_fused
 
 TOLS = {np.float64: 1e-10, np.float32: 2e-5}
 DEGREES = (0, 1, 3, 6)
@@ -62,7 +63,8 @@ def jax_reference():
 @pytest.mark.parametrize("L", DEGREES)
 @pytest.mark.parametrize("shared", [True, False], ids=["shared", "batched"])
 @pytest.mark.parametrize("transpose", [False, True], ids=["fwd", "T"])
-@pytest.mark.parametrize("impl", ["zjz", "dense", "fused", "auto"])
+@pytest.mark.parametrize("impl", ["zjz", "dense", "fused", "auto", "pallas",
+                                  "xla"])
 def test_apply_matches_jax(jax_reference, dtype, L, shared, transpose, impl):
     angles, spec = _inputs(L, shared, dtype)
     got = tops.block_wigner_matrix_multiply(
@@ -115,12 +117,18 @@ def test_cpu_tensors_never_launch_the_kernel():
     assert fused.launches == before
 
 
-def test_pallas_impl_is_not_ported():
-    angles, spec = _inputs(1, True, np.float32)
-    with pytest.raises(NotImplementedError, match="K5"):
-        tops.block_wigner_matrix_multiply(torch.tensor(angles),
-                                          torch.tensor(spec), 1,
-                                          impl="pallas")
+def test_pallas_impl_runs_the_plain_version_on_cpu():
+    """impl='pallas' on CPU tensors is the plain version of K5/K6: the
+    plain synthesise-then-apply product, with no launch counted."""
+    angles, spec = _inputs(3, True, np.float32)
+    fn = wigner_block.block_wigner_matrix_multiply_pallas
+    before = (fn.launches, fn.launches_backward)
+    a, x = torch.tensor(angles), torch.tensor(spec)
+    got = tops.block_wigner_matrix_multiply(a, x, 3, impl="pallas")
+    want = wigner_block.wigner_block_apply_plain(
+        *wigner_block.trig_features(a, 3), x, 3)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert (fn.launches, fn.launches_backward) == before
 
 
 def test_packed_j_holds_every_block():
