@@ -9,15 +9,22 @@ Phases, each timed:
 1. card: name and power limit (nvidia-smi), torch, CUDA and nvcc versions;
 2. build: the Wigner chain kernels (csrc/wigner_chain.cu), the density
    kernels (csrc/so3_density.cu) and the synthesise-then-apply Wigner
-   kernels (csrc/wigner_block.cu), one nvcc each, started together;
+   kernels (csrc/wigner_block.cu), one nvcc each, started together with a
+   fourth that compiles the chain kernels with ``-Xptxas -v`` to report
+   each one's registers, stack frame and spills;
 3. K1, the chain kernel without residuals, against the plain chain on the
    card over L in {0, 1, 3, 6, 10}, C in {1, 10, 16}, B in {1, 64, 4103},
    shared and per-sample spectra, transpose on and off; then both timed
-   with CUDA events at the flagship shape (B = 64) and at B = 4096;
+   with CUDA events at the flagship shape (B = 64) and at B = 4096, and
+   the kernel's device time taken from a CUDA graph of 20 launches;
 4. K2, the chain forward with residuals and its backward kernel, against
-   autograd of the plain chain over the same grid (and two shapes whose
-   backward spans several channel tiles): output, d angles, d spectrum for
-   a random cotangent; timed as K1;
+   autograd of the plain chain over the same grid (and two wider shapes,
+   C = 100 and C = 40): output, d angles, d spectrum for a random
+   cotangent; timed as K1; then the three chain kernels at every degree
+   from 0 to 16 and at C = 130 (two channel tiles) against the plain chain
+   and its autograd, and each run twice on the same inputs, shared and
+   per-sample spectra, C in {10, 100}, B in {64, 4103}, to repeat bit for
+   bit;
 5. K3 and K4, the wrapped SO(3) density and its backward, against the
    plain density and its autograd in float64: N in {1, 64, 4103, 65536}
    samples (the last as n = 4 samples of a batch of 16384), k in
@@ -57,6 +64,7 @@ exits non-zero and prints no result; it does so too without a CUDA card.
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -148,6 +156,59 @@ def cuda_ms(fn, trials=20, per_trial=10):
         end.synchronize()
         times.append(start.elapsed_time(end) / per_trial)
     return statistics.median(times)
+
+
+def device_us(fn, launches=20, replays=20):
+    """Median over ``replays`` of the device µs per call of ``fn``: a warm-up
+    call, then ``launches`` calls captured in one CUDA graph, whose replays
+    are timed with CUDA events (the host's enqueue drops out)."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(1e3 * start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+def ptxas_report(text):
+    """{kernel: (registers, stack bytes, spill stores, spill loads)} from
+    ``nvcc -Xptxas -v`` on csrc/wigner_chain.cu; a kernel is named by its
+    kind and its degree cap, e.g. ``fwd_res<6>``."""
+    report, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '\S*?wigner_chain_(fwd|bwd|"
+                      r"sum)_kernel(?:ILi(\d+)E(?:Lb([01])E)?E)?", line)
+        if m:
+            kind, cap, res = m.groups()
+            name = (kind + ("_res" if res == "1" else "")
+                    + (f"<{cap}>" if cap else ""))
+            report[name] = [None] * 4
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            report[name][1:] = [int(v) for v in m.groups()]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in report.items()}
 
 
 def host_ms(fn, reps=20, warm=2):
@@ -449,12 +510,25 @@ def main():
         _build.build(name)
         return time.perf_counter() - tb
 
-    with ThreadPoolExecutor(len(sources)) as pool:
+    def ptxas():
+        os.makedirs(_build.BUILD_DIR, exist_ok=True)
+        return subprocess.run(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS[:4], "-cubin", "-Xptxas",
+             "-v", "-o", os.path.join(_build.BUILD_DIR, "wigner_chain.cubin"),
+             os.path.join(_build.CSRC, "wigner_chain.cu")],
+            capture_output=True, text=True, check=True).stderr
+
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        ptxas_text = pool.submit(ptxas)
         build_s = dict(zip(sources, pool.map(timed_build, sources)))
+        ptxas_chain = ptxas_report(ptxas_text.result())
     for n in sources:
         print(f"   {n}: {build_s[n]:.2f} s "
               f"({'already built' if cached[n] else 'nvcc'}) -> "
               f"{_build.library_path(n)}")
+    print("   wigner_chain.cu, ptxas (registers, stack frame, spill stores, "
+          "spill loads in bytes): " + "; ".join(
+              f"{k} {v}" for k, v in ptxas_chain.items()))
     done(t0)
 
     t0 = phase("K1: Wigner chain kernel vs plain chain on the card")
@@ -496,10 +570,12 @@ def main():
             k_ms = cuda_ms(lambda: fused(angles, item_rep, 6))
             p_ms = cuda_ms(lambda: block_wigner_apply_zjz(angles, item_rep,
                                                           6))
+            k_us = device_us(lambda: fused(angles, item_rep, 6))
         bound, bound_by = chain_bound(B, 6, 10, shared=True)
-        timing[B] = (k_ms, p_ms, bound, bound_by)
-        print(f"   B={B} L=6 C=10 shared: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, bound {bound:.6f} ms ({bound_by})")
+        timing[B] = (k_ms, p_ms, bound, bound_by, k_us)
+        print(f"   B={B} L=6 C=10 shared: kernel {k_ms:.4f} ms (device "
+              f"{k_us:.2f} us), plain {p_ms:.4f} ms, bound {bound:.6f} ms "
+              f"({bound_by})")
     done(t0)
 
     t0 = phase("K2: chain with residuals and its backward kernel vs "
@@ -543,10 +619,10 @@ def main():
                 w[1] = max(w[1], e_out)
                 w[2] = max(w[2], r_a, r_x)
     for (L, wide), (n, e_out, r_grad) in sorted(per_l.items()):
-        print(f"   L={L:2d}{' C>16 (several tiles)' if wide else ''}: {n} "
+        print(f"   L={L:2d}{' C>16' if wide else ''}: {n} "
               f"cases, max |out - plain| {e_out:.3e}, max grad error "
               f"{r_grad:.3e} of max(1, max|ref|)")
-    k2_timing = {}
+    k2_timing, chain_us = {}, {}
     for B in (64, 4096):
         angles = group_matrix_to_eazyz(
             random_group_matrices(B, gen, device="cpu").to(dev)).contiguous()
@@ -565,10 +641,84 @@ def main():
         fb = chain_res_bound(B, 6, 10, shared=True)
         bb = chain_bwd_bound(B, 6, 10, shared=True)
         k2_timing[B] = (f_ms, pf_ms, fb, b_ms, pb_ms, bb)
+        chain_us[B] = (
+            device_us(lambda: wigner_fused._launch_residuals(
+                angles, item_rep, 6)),
+            device_us(lambda: wigner_fused._launch_backward(
+                angles, item_rep, y, z, dout, 6, True)))
         print(f"   B={B} L=6 C=10 shared: forward with residuals {f_ms:.4f} "
-              f"ms (plain with grad {pf_ms:.4f}, bound {fb[0]:.6f} "
-              f"{fb[1]}); backward {b_ms:.4f} ms (plain autograd "
-              f"{pb_ms:.4f}, bound {bb[0]:.6f} {bb[1]})")
+              f"ms (device {chain_us[B][0]:.2f} us; plain with grad "
+              f"{pf_ms:.4f}, bound {fb[0]:.6f} {fb[1]}); backward "
+              f"{b_ms:.4f} ms (device {chain_us[B][1]:.2f} us; plain "
+              f"autograd {pb_ms:.4f}, bound {bb[0]:.6f} {bb[1]})")
+
+    # every degree the kernels take, and a spectrum wider than one channel
+    # tile (128), against the plain chain and its autograd; drawn from a
+    # generator of their own, so the later phases' inputs do not depend on
+    # these checks
+    gen_deg = torch.Generator(device="cpu").manual_seed(7)
+    worst_deg = [0.0, 0.0]
+    for L in range(wigner_fused.MAX_DEGREE + 1):
+        S = (L + 1) ** 2
+        for C in (3, 130):
+            angles = group_matrix_to_eazyz(random_group_matrices(
+                5, gen_deg, device="cpu").to(dev)).contiguous()
+            dout = torch.randn((5, S, C), generator=gen_deg).to(dev)
+            for shared in (True, False):
+                x = torch.randn((S, C) if shared else (5, S, C),
+                                generator=gen_deg).to(dev)
+                got = fused(angles, x, L)
+                res = []
+                for fn in (fused, block_wigner_apply_zjz):
+                    a = angles.clone().requires_grad_()
+                    xx = x.clone().requires_grad_()
+                    out = fn(a, xx, L)
+                    res.append((out.detach(),) + torch.autograd.grad(
+                        out, (a, xx), dout))
+                e_out = max((got - res[1][0]).abs().max().item(),
+                            (res[0][0] - res[1][0]).abs().max().item())
+                r_grad = max(max_rel(g, w)[1]
+                             for g, w in zip(res[0][1:], res[1][1:]))
+                tol_out = KERNEL_TOL * max(1.0, x.abs().max().item())
+                if not (e_out <= tol_out and r_grad <= GRAD_TOL):
+                    raise AssertionError(
+                        f"chain kernels != plain: L={L} C={C} B=5 "
+                        f"shared={shared}: out {e_out:.3e} (tol "
+                        f"{tol_out:.3e}), gradients {r_grad:.3e} (tol "
+                        f"{GRAD_TOL})")
+                worst_deg = [max(worst_deg[0], e_out),
+                             max(worst_deg[1], r_grad)]
+    print(f"   L=0..{wigner_fused.MAX_DEGREE}, C in (3, 130), B=5, shared and "
+          f"per-sample: max |out - plain| {worst_deg[0]:.3e}, max grad error "
+          f"{worst_deg[1]:.3e} of max(1, max|ref|)")
+
+    # the same inputs twice give the same bits: fixed-order sums, no atomics
+    n_rep = 0
+    for shared in (True, False):
+        for C in (10, 100):
+            for B in (64, 4103):
+                angles = group_matrix_to_eazyz(random_group_matrices(
+                    B, gen_deg, device="cpu").to(dev)).contiguous()
+                x = torch.randn((49, C) if shared else (B, 49, C),
+                                generator=gen_deg).to(dev)
+                dout = torch.randn((B, 49, C), generator=gen_deg).to(dev)
+                runs = []
+                for _ in range(2):
+                    out = wigner_fused._launch(angles, x, 6)
+                    res = wigner_fused._launch_residuals(angles, x, 6)
+                    grads = wigner_fused._launch_backward(
+                        angles, x, res[1], res[2], dout, 6, True)
+                    runs.append((out,) + res + grads)
+                same = [torch.equal(p, q) for p, q in zip(*runs)]
+                if not all(same):
+                    raise AssertionError(
+                        f"chain kernels differ between two runs (out, out, "
+                        f"y, z, dx, dangles: {same}): shared={shared} C={C} "
+                        f"B={B}")
+                n_rep += 1
+    print(f"   K1, K2 forward and backward repeat bit for bit: {n_rep} "
+          "cases (L=6; shared and per-sample, C in (10, 100), B in (64, "
+          "4103))")
     done(t0)
 
     t0 = phase("K3/K4: wrapped SO(3) density and its backward vs the plain "
@@ -943,8 +1093,8 @@ def main():
           f"own log-weights by {gap.min():.3f} .. {gap.max():.3f}")
     done(t0)
 
-    k64, p64, b64, by64 = timing[64]
-    k4k, p4k, b4k, _ = timing[4096]
+    k64, p64, b64, by64, us64 = timing[64]
+    k4k, p4k, b4k, _, us4k = timing[4096]
     src_chain = "lie_vae_tpu_torch/csrc/wigner_chain.cu"
     src_dens = "lie_vae_tpu_torch/csrc/so3_density.cu"
     src_block = "lie_vae_tpu_torch/csrc/wigner_block.cu"
@@ -956,7 +1106,9 @@ def main():
         "ms": k64, "plain_ms": p64, "bound_ms": b64, "bound_by": by64,
         "library_ms": None,
         "shape": "B=64 L=6 C=10 shared",
-        "ms_b4096": k4k, "plain_ms_b4096": p4k, "bound_ms_b4096": b4k}]
+        "ms_b4096": k4k, "plain_ms_b4096": p4k, "bound_ms_b4096": b4k,
+        "device_us": us64, "device_us_b4096": us4k}]
+    chain_dev = {"wigner_chain_fwd_res": 0, "wigner_chain_bwd": 1}
     for name, src, replaces, tim, err, launch_key, shape, big in (
             ("wigner_chain_fwd_res", src_chain,
              "lie_vae_tpu/ops/kernels/wigner_fused.py:127", k2_timing,
@@ -993,7 +1145,11 @@ def main():
             "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
             "shape": shape, f"ms_b{big}": ms_l,
             f"plain_ms_b{big}": plain_l, f"bound_ms_b{big}": bound_l})
-    record = {"kernels": kernels, "build_s": build_s, "request_ms": req_ms,
+        if name in chain_dev:
+            kernels[-1]["device_us"] = chain_us[64][chain_dev[name]]
+            kernels[-1]["device_us_b4096"] = chain_us[4096][chain_dev[name]]
+    record = {"kernels": kernels, "build_s": build_s,
+              "ptxas_wigner_chain": ptxas_chain, "request_ms": req_ms,
               "render_s": render_s,
               "train_step_ms": train_runs["fused"][0],
               "train_step_ms_pallas": train_runs["pallas"][0],

@@ -2,325 +2,436 @@
 // spectrum, forward and backward, for one NVIDIA Hopper card (sm_90a).
 //
 // Replaces the TPU kernel lie_vae_tpu/ops/kernels/wigner_fused.py::
-// _chain_kernel: run without residuals (through _plain_kernel, for
-// inference: wigner_chain_fwd), run with residuals (the forward of its
-// custom VJP: wigner_chain_fwd_res), and the backward op_bwd, which runs
-// the same kernel on dout at (-g, -b, -a) and then takes six
-// (B, SC) x (SC, L+1) reductions in XLA for the trig-feature cotangents
-// (wigner_chain_bwd). That kernel rides a flat (B, S*C) lane layout with
-// Kronecker-expanded (SC, SC) constants, 0/+-1 selection products for the
-// trig features and an x[rev] gather done outside the kernel: all ways
-// around the TPU's lack of lane gathers. A GPU gathers from shared memory,
-// so none of that carries over; the function and its contract do:
+// _chain_kernel (:127): run without residuals through _plain_kernel (:158,
+// call :208) for inference (wigner_chain_fwd, K1), run with residuals (call
+// :194) as the forward of its custom VJP (wigner_chain_fwd_res, K2
+// forward), and that VJP's backward op_bwd (:240-261), which runs the same
+// kernel on dout at (-g, -b, -a) and then takes six (B, SC) x (SC, L+1)
+// reductions in XLA for the trig-feature cotangents (wigner_chain_bwd, K2
+// backward). The TPU kernel rides a flat (B, S*C) lane layout with
+// Kronecker-expanded (SC, SC) constants, because a TPU has no lane gathers.
+// The function and its contract carry over, the layout does not:
 //
-//   angles (B, 3) float32, ZYZ (a, b, g);
-//   x shared (S, C) or per-sample (B, S, C) float32, S = (L+1)^2;
-//   out (B, S, C) float32.
-//   (Z(t) h)_i = cos(f_i t) h_i + sin(f_i t) h_rev(i), with f_i = l - (i - l^2)
-//   for row i in degree block l and rev(i) = l^2 + (l^2 + 2l - i);
-//   J = diag(J_0 .. J_L), packed row-major block after block (455 floats
-//   for L = 6). W^T is the same chain at (-g, -b, -a): the caller flips the
-//   angles, so these entry points take the angles of the chain they run.
+//   angles (B, 3) float32, ZYZ (a, b, g), already flipped by the caller for
+//   the transpose W^T, which is the same chain at (-g, -b, -a);
+//   x shared (S, C), read in place at stride 0, or per sample (B, S, C);
+//   out (B, S, C) float32, S = (L+1)^2, any 0 <= L <= 16 and any C >= 1.
+//   (Z(t) h)_i = cos(f_i t) h_i + sin(f_i t) h_rev(i), f_i = l - (i - l^2)
+//   for row i in degree block l, rev(i) = l^2 + (l^2 + 2l - i);
+//   J = diag(J_0 .. J_16), constant, symmetric.
 //
-// Forward design (first version: simple and right). One thread block takes
-// one sample and a tile of its channels; channels are independent columns
-// of the chain, so the tile is sized to keep shared memory under the
-// default 48 KB for every L the tables hold (L <= 16) and any C. The block
-// stages the spectrum tile and J in shared memory, computes the 6(L+1)
-// distinct sincosf(m t) once, then runs the chain in three passes, each
-// fusing a z-rotation into the neighbouring J product:
-//   y = J Z(g) x,   z = J Z(b) y,   out = Z(a) z.
-// With residuals it also writes y and z, (B, S, C) each, for the backward;
-// they cost 2/3 more bytes than the output alone but save the backward two
-// of its five passes. A shared (S, C) spectrum is read by every block from
-// the same addresses and stays in L2; it is never expanded to (B, S, C).
+// The chain is block-diagonal by degree: each column (b, l, c), the d = 2l+1
+// rows of degree l of sample b in channel c, goes through Z, J_l, Z, J_l, Z
+// on its own. So one thread takes one column and keeps its d-vector in
+// registers through every pass (d a template parameter, loops unrolled):
+// a z-rotation is one 2x2 rotation per pair (k, d-1-k), both in the
+// thread's registers; a J_l product is a run of FMAs whose J operands are
+// compile-time offsets into __constant__ memory (no load instruction), and
+// only the entries that J_l's structure lets be non-zero are multiplied
+// (j_coupled below: 43 of 169 at l = 6). No barrier sits between passes and
+// no index is divided per element.
 //
-// Backward design. Z(t)^T = Z(-t) and J is symmetric, so for a cotangent
-// G of out:
+// Launch plan. blockIdx.y is the degree, heaviest first (l = L - y), so
+// every warp works on one l (uniform J reads, no divergence) and the l = L
+// blocks start first. blockIdx.x takes nb samples times a tile of ct
+// channels (nb * ct <= 128 threads, the lanes over (b, c), c fastest; C
+// above 128 is cut into equal channel tiles). The block stages cos/sin(m t),
+// m <= l, of its samples' three angles in shared memory (full-precision
+// sincosf, nb * 3 (l+1) of them over the block's threads instead of
+// 3 (l+1) per thread), then one barrier, then each thread runs its column.
+// Reads and writes go straight to device memory: a row of a sample is C
+// contiguous floats and a sample's degree-l slab d * C of them, which one
+// warp walks row by row, so L1 and L2 assemble whole sectors; a shared
+// spectrum stays in L1/L2 for every sample. One kernel is built per cap on
+// the degree (3, 6, 10, 16) and a launch takes the smallest cap >= L: its
+// registers follow the cap's largest column.
+//
+// Tried on an H100 against this design (PERF.md): staging each block's
+// outputs in shared memory so that warps store whole contiguous runs was
+// slower at every shape timed; one instantiation per L took about twice
+// the build time at about the same speed; issuing the column's loads
+// before the trig staging was a little faster but spilled registers at
+// L = 6.
+//
+// Forward: y = J Z(g) x, z = J Z(b) y, out = Z(a) z; with residuals it also
+// writes y and z (B, S, C) for the backward.
+//
+// Backward. Z(t)^T = Z(-t) and J is symmetric, so for a cotangent G of out,
 //   A = J Z(-a) G,   V = J Z(-b) A,   dx = Z(-g) V,
-// and with d/dt (Z(t) h)_i = -|f_i| sin(|f_i| t) h_i + f_i cos(|f_i| t) h_rev(i)
-// the angle gradients are
+// and with (Z'(t) h)_i = -|f_i| sin(|f_i| t) h_i + f_i cos(|f_i| t) h_rev(i)
 //   da = <G, Z'(a) z>,   db = <A, Z'(b) y>,   dg = <V, Z'(g) x>,
-// contracted in the same three passes that make A, V and dx (no trig
-// features, no XLA reductions). One block per sample and channel tile, as
-// the forward; the block sums its threads' partials in a fixed tree, and
-// where a sample spans several channel tiles a second kernel adds the
-// per-tile partials in tile order: no atomics, so a run repeats bit for bit.
-// dx is per sample; for a shared spectrum the caller sums it over the batch.
+// each column adding its own terms, in registers. A block sums its
+// threads' terms per sample in channel order (shared memory, one thread per
+// sample and angle) into scratch[(L - l) * ctiles + tile][b]; a second
+// small kernel adds the (L+1) * ctiles slots of each sample in slot order.
+// No atomics: a run repeats bit for bit. dx is per sample; for a shared
+// spectrum the caller sums it over the batch.
 //
-// All arithmetic is float32. The JAX package computes its products in
-// bfloat16 by default, a choice made for the TPU's matrix unit; these
-// kernels do not copy it.
-//
-// Bound on an H100 SXM: the bytes. Forward, 12 B of angles plus 4*S*C B of
-// output per sample (plus the spectrum, once if shared), and 8*S*C B more
-// with residuals; backward, the angles, y, z, dout and dx, 16*S*C + 24 B per
-// sample (plus x). At the training shape (B = 64, L = 6, C = 10) that is
-// 0.4 to 0.5 MB, about 0.15 us: far below one launch. There the cost is the launch
-// and the latency of the dependent passes inside each block, not the
-// bytes; a later version gains by shortening the passes (per-row index
-// tables, more samples per block) and by fusing with the neighbours.
+// What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32): the bytes.
+// Per sample at L = 6, C = 10, K1 writes 4 S C = 1960 B of out and reads
+// 12 B of angles (a shared spectrum once per call); K2's forward also
+// writes y and z (5880 B in all); the backward reads y, z and dout and
+// writes dx (7840 B, plus x when per sample). K1 does about 12 float32
+// operations per byte it must move with dense J products and 5 with J's
+// zeros skipped (K2 fewer), against the card's 20 per byte outside the
+// tensor cores. No tensor cores: the work is bound by bytes at every batch,
+// and TF32 keeps about 3 decimal digits, which would break the kernels'
+// 1e-5 tolerance against the float32 plain chain; a wgmma/mma.sync version
+// is not worth trying without a measurement that says otherwise. All
+// arithmetic is float32; the JAX package's bfloat16 products, a choice made
+// for the TPU's matrix unit, are not copied.
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
-constexpr int kThreads = 128;               // a power of two (tree sums)
+constexpr int kMaxDegree = 16;        // the degrees ops/jd_tables.npz holds
+constexpr int kThreads = 128;         // threads a block at most
 constexpr size_t kSmemLimit = 48 * 1024;
 
-__device__ __forceinline__ int degree_of(int i) {
-  int l = (int)sqrtf((float)i);
-  while ((l + 1) * (l + 1) <= i) ++l;
-  while (l * l > i) --l;
-  return l;
-}
-
 // first packed index of J_l: sum_{k<l} (2k+1)^2 = l (4 l^2 - 1) / 3
-__device__ __host__ __forceinline__ int j_offset(int l) {
+__host__ __device__ constexpr int j_offset(int l) {
   return l * (4 * l * l - 1) / 3;
 }
 
-// (Z(sgn t) h)[i, c] read from a tile h of `ct` columns; trig holds cos(m t)
-// at [m] and sin(m t) at [L1 + m]; sgn = -1 gives Z(-t) = Z(t)^T.
-__device__ __forceinline__ float zrot(const float* h, const float* trig,
-                                      int L1, int i, int l, int c, int ct,
-                                      float sgn) {
-  const int f = l - (i - l * l);
-  const int m = f < 0 ? -f : f;
-  const float s = (f < 0 ? -sgn : sgn) * trig[L1 + m];
-  const int r = 2 * l * l + 2 * l - i;
-  return trig[m] * h[i * ct + c] + s * h[r * ct + c];
+constexpr int kJSize = j_offset(kMaxDegree + 1);   // 6545 floats, 26 KB
+
+// J_0 .. J_16, each row-major, set once per device (wigner_chain_load_j)
+__constant__ float kJ[kJSize];
+
+// Can J_l[i][k] be non-zero? Row i has frequency f = l - i; with s = (f > 0)
+// and p = f odd, J_l couples i and k only when s ^ p agree, and then their
+// signs agree exactly when s ^ p equals l's parity (J's real-basis
+// structure; the Python twin j_coupled is tested against every table).
+__host__ __device__ constexpr bool j_coupled(int l, int i, int k) {
+  const int fi = l - i, fk = l - k;
+  const bool qi = (fi > 0) != ((fi & 1) != 0);
+  const bool qk = (fk > 0) != ((fk & 1) != 0);
+  return qi == qk && (((fi > 0) == (fk > 0)) == (qi == ((l & 1) != 0)));
 }
 
-// p[i, c] * d/dt (Z(t) h)[i, c]: one term of an angle gradient
-__device__ __forceinline__ float dzrot(const float* p, const float* h,
-                                       const float* trig, int L1, int i,
-                                       int l, int c, int ct) {
-  const int f = l - (i - l * l);
-  const int m = f < 0 ? -f : f;
-  const int r = 2 * l * l + 2 * l - i;
-  return p[i * ct + c] * ((float)f * trig[m] * h[r * ct + c]
-                          - (float)m * trig[L1 + m] * h[i * ct + c]);
+template <int l>
+using Col = float[2 * l + 1];
+
+template <int l>
+__device__ __forceinline__ void load_col(Col<l>& v, const float* p, int C) {
+#pragma unroll
+  for (int k = 0; k < 2 * l + 1; ++k) v[k] = __ldg(p + (size_t)k * C);
 }
 
-// dst[i, c] = sum_j J_l[i, j] (Z(sgn t) src)[j, c] over row i's block l
-__device__ __forceinline__ void j_of_z(float* dst, const float* src,
-                                       const float* jp, const float* trig,
-                                       int L1, int S, int ct, float sgn) {
-  for (int e = threadIdx.x; e < S * ct; e += blockDim.x) {
-    const int i = e / ct, c = e - (e / ct) * ct;
-    const int l = degree_of(i), o = l * l, d = 2 * l + 1;
-    const float* jrow = jp + j_offset(l) + (i - o) * d;
+template <int l>
+__device__ __forceinline__ void store_col(float* p, const Col<l>& v, int C) {
+#pragma unroll
+  for (int k = 0; k < 2 * l + 1; ++k) p[(size_t)k * C] = v[k];
+}
+
+// v <- Z(sgn t) v; tr[m] = (cos m t, sin m t); sgn = -1 gives Z(t)^T
+template <int l>
+__device__ __forceinline__ void zrot(Col<l>& v, const float2* tr, float sgn) {
+#pragma unroll
+  for (int k = 0; k < l; ++k) {
+    const float2 cs = tr[l - k];
+    const float s = sgn * cs.y;
+    const float h = v[k], r = v[2 * l - k];
+    v[k] = fmaf(cs.x, h, s * r);
+    v[2 * l - k] = fmaf(cs.x, r, -s * h);
+  }
+}
+
+// <p, d/dt Z(t) h>: pair (k, k') = (k, 2l - k) has m = l - k and
+// (Z'h)_k = m (c h_k' - s h_k), (Z'h)_k' = -m (s h_k' + c h_k)
+template <int l>
+__device__ __forceinline__ float dzrot_dot(const Col<l>& p, const Col<l>& h,
+                                           const float2* tr) {
+  float acc = 0.f;
+#pragma unroll
+  for (int k = 0; k < l; ++k) {
+    const float2 cs = tr[l - k];
+    const int r = 2 * l - k;
+    const float u = fmaf(cs.x, h[r], -cs.y * h[k]);
+    const float w = fmaf(cs.y, h[r], cs.x * h[k]);
+    acc = fmaf((float)(l - k), fmaf(p[k], u, -p[r] * w), acc);
+  }
+  return acc;
+}
+
+// v <- J_l v over J_l's coupled entries
+template <int l>
+__device__ __forceinline__ void jmul(Col<l>& v) {
+  constexpr int d = 2 * l + 1, o = j_offset(l);
+  float w[d];
+#pragma unroll
+  for (int i = 0; i < d; ++i) {
     float acc = 0.f;
+#pragma unroll
     for (int k = 0; k < d; ++k)
-      acc = fmaf(jrow[k], zrot(src, trig, L1, o + k, l, c, ct, sgn), acc);
-    dst[e] = acc;
+      if (j_coupled(l, i, k)) acc = fmaf(kJ[o + i * d + k], v[k], acc);
+    w[i] = acc;
+  }
+#pragma unroll
+  for (int i = 0; i < d; ++i) v[i] = w[i];
+}
+
+// tr[(s * 3 + r) * n + m] = (cos m t, sin m t) of angle r of sample b0 + s,
+// m < n; samples past the batch get (1, 0)
+__device__ __forceinline__ void stage_trig(float2* tr, const float* angles,
+                                           int B, int b0, int nb, int n) {
+  for (int e = threadIdx.x; e < nb * 3 * n; e += blockDim.x) {
+    const int sr = e / n, m = e - sr * n;
+    float s = 0.f, c = 1.f;
+    if (b0 + sr / 3 < B) sincosf((float)m * angles[3LL * b0 + sr], &s, &c);
+    tr[e] = make_float2(c, s);
   }
 }
 
-// J and the sincos of the three angles of sample b into shared memory
-__device__ __forceinline__ void stage_constants(float* jp, float* trig,
-                                                const float* jpacked,
-                                                const float* angles, int b,
-                                                int L1) {
-  const int n_j = j_offset(L1);
-  for (int k = threadIdx.x; k < n_j; k += blockDim.x) jp[k] = jpacked[k];
-  for (int k = threadIdx.x; k < 3 * L1; k += blockDim.x) {
-    const int slot = k / L1, m = k - slot * L1;
-    float s, c;
-    sincosf((float)m * angles[3 * (long long)b + slot], &s, &c);
-    trig[2 * slot * L1 + m] = c;
-    trig[2 * slot * L1 + L1 + m] = s;
+// A thread's place: degree l, sample b0 + s of the block's nb (from b0),
+// channel c; whether that column exists; its offset at row l^2 within a
+// sample (row) and in a (B, S, C) tensor (off).
+struct Place {
+  int l, b0, s, c;
+  bool active;
+  long long row, off;
+};
+
+__device__ __forceinline__ Place place(int L, int B, int C, int nb, int ct,
+                                       int ctiles) {
+  Place q;
+  q.l = L - (int)blockIdx.y;
+  q.b0 = (int)(blockIdx.x / ctiles) * nb;
+  q.s = (int)threadIdx.x / ct;
+  q.c = (int)(blockIdx.x % ctiles) * ct + (int)threadIdx.x % ct;
+  q.active = q.b0 + q.s < B && q.c < C;
+  q.row = (long long)q.l * q.l * C + q.c;
+  q.off = (long long)(q.b0 + q.s) * (L + 1) * (L + 1) * C + q.row;
+  return q;
+}
+
+// The block's trig, read by every column of the block.
+struct Trig {
+  float2* smem;
+  const float* angles;
+  int B, nb;
+};
+
+// Degree l of a forward block, run by each of its threads: the column's
+// loads go out between the block's trig staging and its barrier, so their
+// latency hides behind the barrier's wait.
+template <int l, bool kResiduals>
+__device__ __forceinline__ void fwd_column(const Place& q, const Trig& tg,
+                                           const float* x, float* out,
+                                           float* y, float* z, int C) {
+  constexpr int n = l + 1;
+  stage_trig(tg.smem, tg.angles, tg.B, q.b0, tg.nb, n);
+  Col<l> v;
+  if (q.active) load_col<l>(v, x, C);
+  __syncthreads();
+  if (!q.active) return;
+  const float2* tr = tg.smem + q.s * 3 * n;
+  zrot<l>(v, tr + 2 * n, 1.f);                 // y = J Z(g) x
+  jmul<l>(v);
+  if (kResiduals) store_col<l>(y, v, C);
+  zrot<l>(v, tr + n, 1.f);                     // z = J Z(b) y
+  jmul<l>(v);
+  if (kResiduals) store_col<l>(z, v, C);
+  zrot<l>(v, tr, 1.f);                         // out = Z(a) z
+  store_col<l>(out, v, C);
+}
+
+// Degree l of a backward block: the column's terms of (da, db, dg), zero
+// for a thread without a column; dx unless it is null. Its four columns
+// are loaded after the barrier: before it they held more registers and
+// ran slower on the H100.
+template <int l>
+__device__ __forceinline__ float3 bwd_column(const Place& q, const Trig& tg,
+                                             const float* x, const float* y,
+                                             const float* z,
+                                             const float* dout, float* dx,
+                                             int C) {
+  constexpr int n = l + 1;
+  stage_trig(tg.smem, tg.angles, tg.B, q.b0, tg.nb, n);
+  __syncthreads();
+  float3 dang = make_float3(0.f, 0.f, 0.f);
+  if (!q.active) return dang;
+  Col<l> g, hz, hy, hx;
+  load_col<l>(g, dout, C);
+  load_col<l>(hz, z, C);
+  load_col<l>(hy, y, C);
+  load_col<l>(hx, x, C);
+  const float2* tr = tg.smem + q.s * 3 * n;
+  dang.x = dzrot_dot<l>(g, hz, tr);            // da = <G, Z'(a) z>
+  zrot<l>(g, tr, -1.f);                        // A = J Z(-a) G
+  jmul<l>(g);
+  dang.y = dzrot_dot<l>(g, hy, tr + n);        // db = <A, Z'(b) y>
+  zrot<l>(g, tr + n, -1.f);                    // V = J Z(-b) A
+  jmul<l>(g);
+  dang.z = dzrot_dot<l>(g, hx, tr + 2 * n);    // dg = <V, Z'(g) x>
+  if (dx != nullptr) {
+    zrot<l>(g, tr + 2 * n, -1.f);              // dx = Z(-g) V
+    store_col<l>(dx, g, C);
+  }
+  return dang;
+}
+
+// degree q.l (<= kCap) through its instantiation
+template <int kCap, bool kResiduals>
+__device__ __forceinline__ void fwd_degree(const Place& q, const Trig& tg,
+                                           const float* x, float* out,
+                                           float* y, float* z, int C) {
+  if constexpr (kCap > 0) {
+    if (q.l < kCap) {
+      fwd_degree<kCap - 1, kResiduals>(q, tg, x, out, y, z, C);
+      return;
+    }
+  }
+  fwd_column<kCap, kResiduals>(q, tg, x, out, y, z, C);
+}
+
+template <int kCap>
+__device__ __forceinline__ float3 bwd_degree(const Place& q, const Trig& tg,
+                                             const float* x, const float* y,
+                                             const float* z,
+                                             const float* dout, float* dx,
+                                             int C) {
+  if constexpr (kCap > 0) {
+    if (q.l < kCap) return bwd_degree<kCap - 1>(q, tg, x, y, z, dout, dx, C);
+  }
+  return bwd_column<kCap>(q, tg, x, y, z, dout, dx, C);
+}
+
+// Degrees L <= kCap; shared memory: the trig, nb * 3 (L+1) float2 (the
+// backward then 3 nb ct floats of column sums).
+template <int kCap, bool kResiduals>
+__global__ void __launch_bounds__(kThreads)
+wigner_chain_fwd_kernel(const float* __restrict__ angles,
+                        const float* __restrict__ x,
+                        float* __restrict__ out, float* __restrict__ y,
+                        float* __restrict__ z, int B, int L, int C, int nb,
+                        int ct, int ctiles, int per_sample) {
+  extern __shared__ float2 smem[];
+  const Place q = place(L, B, C, nb, ct, ctiles);
+  fwd_degree<kCap, kResiduals>(q, Trig{smem, angles, B, nb},
+                               x + (per_sample ? q.off : q.row), out + q.off,
+                               kResiduals ? y + q.off : nullptr,
+                               kResiduals ? z + q.off : nullptr, C);
+}
+
+template <int kCap>
+__global__ void __launch_bounds__(kThreads)
+wigner_chain_bwd_kernel(const float* __restrict__ angles,
+                        const float* __restrict__ x,
+                        const float* __restrict__ y,
+                        const float* __restrict__ z,
+                        const float* __restrict__ dout,
+                        float* __restrict__ dx, float* __restrict__ partial,
+                        int B, int L, int C, int nb, int ct, int ctiles,
+                        int per_sample) {
+  extern __shared__ float2 smem[];
+  const Place q = place(L, B, C, nb, ct, ctiles);
+  const int nt = (int)blockDim.x, t = (int)threadIdx.x;
+  const float3 dang = bwd_degree<kCap>(
+      q, Trig{smem, angles, B, nb}, x + (per_sample ? q.off : q.row),
+      y + q.off, z + q.off, dout + q.off,
+      dx != nullptr ? dx + q.off : nullptr, C);
+  float* red = reinterpret_cast<float*>(smem + nb * 3 * (L + 1));  // 3 nt
+  red[t] = dang.x;
+  red[nt + t] = dang.y;
+  red[2 * nt + t] = dang.z;
+  __syncthreads();
+  const int slot = (int)blockIdx.y * ctiles + (int)(blockIdx.x % ctiles);
+  for (int e = t; e < 3 * nb; e += nt) {      // e = 3 s + r
+    const int s = e / 3, r = e - 3 * s, b = q.b0 + s;
+    if (b >= B) break;
+    const float* v = red + r * nt + s * ct;
+    float acc = 0.f;
+    for (int c = 0; c < ct; ++c) acc += v[c];
+    partial[((long long)slot * B + b) * 3 + r] = acc;
   }
 }
 
-// columns c0 .. c0 + cw of the (S, C) matrix at src into a zero-padded tile
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int S, int C, int c0, int cw,
-                                          int ct) {
-  for (int e = threadIdx.x; e < S * ct; e += blockDim.x) {
-    const int i = e / ct, c = e - (e / ct) * ct;
-    dst[e] = c < cw ? src[(long long)i * C + c0 + c] : 0.f;
-  }
-}
-
-__device__ __forceinline__ void store_tile(float* dst, const float* src,
-                                           int S, int C, int c0, int cw,
-                                           int ct) {
-  for (int e = threadIdx.x; e < S * ct; e += blockDim.x) {
-    const int i = e / ct, c = e - (e / ct) * ct;
-    if (c < cw) dst[(long long)i * C + c0 + c] = src[e];
-  }
-}
-
-template <bool kResiduals>
-__global__ void wigner_chain_fwd_kernel(const float* __restrict__ angles,
-                                        const float* __restrict__ x,
-                                        const float* __restrict__ jpacked,
-                                        float* __restrict__ out,
-                                        float* __restrict__ y_out,
-                                        float* __restrict__ z_out,
-                                        int L, int C, int ct,
-                                        long long x_batch_stride) {
-  extern __shared__ float smem[];
-  const int L1 = L + 1, S = L1 * L1, n_j = j_offset(L1);
-  const int b = blockIdx.x, c0 = blockIdx.y * ct;
-  const int cw = min(ct, C - c0);            // columns in this tile
-  float* buf0 = smem;                        // S * ct
-  float* buf1 = buf0 + S * ct;               // S * ct
-  float* jp = buf1 + S * ct;                 // n_j
-  float* trig = jp + n_j;                    // 3 angles x (cos, sin) x L1
-
-  stage_constants(jp, trig, jpacked, angles, b, L1);
-  load_tile(buf0, x + (long long)b * x_batch_stride, S, C, c0, cw, ct);
-  __syncthreads();
-
-  const float* ta = trig;
-  const float* tb = trig + 2 * L1;
-  const float* tg = trig + 4 * L1;
-  const long long base = (long long)b * S * C;
-  j_of_z(buf1, buf0, jp, tg, L1, S, ct, 1.f);     // y = J Z(g) x
-  __syncthreads();
-  if (kResiduals) store_tile(y_out + base, buf1, S, C, c0, cw, ct);
-  j_of_z(buf0, buf1, jp, tb, L1, S, ct, 1.f);     // z = J Z(b) y
-  __syncthreads();
-  if (kResiduals) store_tile(z_out + base, buf0, S, C, c0, cw, ct);
-
-  for (int e = threadIdx.x; e < S * ct; e += blockDim.x) {
-    const int i = e / ct, c = e - (e / ct) * ct;
-    if (c < cw)
-      out[base + (long long)i * C + c0 + c] =
-          zrot(buf0, ta, L1, i, degree_of(i), c, ct, 1.f);   // Z(a) z
-  }
-}
-
-__global__ void wigner_chain_bwd_kernel(const float* __restrict__ angles,
-                                        const float* __restrict__ x,
-                                        const float* __restrict__ jpacked,
-                                        const float* __restrict__ y,
-                                        const float* __restrict__ z,
-                                        const float* __restrict__ dout,
-                                        float* __restrict__ dx,
-                                        float* __restrict__ dangles,
-                                        int L, int C, int ct,
-                                        long long x_batch_stride) {
-  extern __shared__ float smem[];
-  const int L1 = L + 1, S = L1 * L1, n_j = j_offset(L1);
-  const int b = blockIdx.x, c0 = blockIdx.y * ct;
-  const int cw = min(ct, C - c0);
-  float* bx = smem;                          // five S * ct tiles
-  float* by = bx + S * ct;
-  float* bz = by + S * ct;
-  float* bg = bz + S * ct;                   // dout, later V
-  float* ba = bg + S * ct;                   // A
-  float* jp = ba + S * ct;                   // n_j
-  float* trig = jp + n_j;                    // 6 * L1
-  float* red = trig + 6 * L1;                // 3 * blockDim.x
-
-  const long long base = (long long)b * S * C;
-  stage_constants(jp, trig, jpacked, angles, b, L1);
-  load_tile(bx, x + (long long)b * x_batch_stride, S, C, c0, cw, ct);
-  load_tile(by, y + base, S, C, c0, cw, ct);
-  load_tile(bz, z + base, S, C, c0, cw, ct);
-  load_tile(bg, dout + base, S, C, c0, cw, ct);
-  __syncthreads();
-
-  const float* ta = trig;
-  const float* tb = trig + 2 * L1;
-  const float* tg = trig + 4 * L1;
-  float da = 0.f, db = 0.f, dg = 0.f;
-  // A = J Z(-a) G; da = <G, Z'(a) z>
-  j_of_z(ba, bg, jp, ta, L1, S, ct, -1.f);
-  for (int e = threadIdx.x; e < S * ct; e += blockDim.x) {
-    const int i = e / ct, c = e - (e / ct) * ct;
-    da += dzrot(bg, bz, ta, L1, i, degree_of(i), c, ct);
-  }
-  __syncthreads();
-  // V = J Z(-b) A (over G, no longer needed); db = <A, Z'(b) y>
-  j_of_z(bg, ba, jp, tb, L1, S, ct, -1.f);
-  for (int e = threadIdx.x; e < S * ct; e += blockDim.x) {
-    const int i = e / ct, c = e - (e / ct) * ct;
-    db += dzrot(ba, by, tb, L1, i, degree_of(i), c, ct);
-  }
-  __syncthreads();
-  // dx = Z(-g) V; dg = <V, Z'(g) x>
-  for (int e = threadIdx.x; e < S * ct; e += blockDim.x) {
-    const int i = e / ct, c = e - (e / ct) * ct;
-    const int l = degree_of(i);
-    if (dx != nullptr && c < cw)
-      dx[base + (long long)i * C + c0 + c] =
-          zrot(bg, tg, L1, i, l, c, ct, -1.f);
-    dg += dzrot(bg, bx, tg, L1, i, l, c, ct);
-  }
-
-  // fixed-order tree over the block's threads
-  const int t = threadIdx.x, nt = blockDim.x;
-  red[t] = da;
-  red[nt + t] = db;
-  red[2 * nt + t] = dg;
-  __syncthreads();
-  for (int half = nt / 2; half > 0; half /= 2) {
-    if (t < half)
-      for (int r = 0; r < 3; ++r) red[r * nt + t] += red[r * nt + t + half];
-    __syncthreads();
-  }
-  if (t == 0) {
-    float* o = dangles + 3 * ((long long)b * gridDim.y + blockIdx.y);
-    o[0] = red[0];
-    o[1] = red[nt];
-    o[2] = red[2 * nt];
-  }
-}
-
-// dangles[b, r] = sum over tiles, in tile order, of partial[b, tile, r]
-__global__ void sum_tiles_kernel(const float* __restrict__ partial,
-                                 float* __restrict__ dangles, int B,
-                                 int tiles) {
+// dangles[b, r] = sum over slots, in slot order, of partial[slot, b, r]
+__global__ void wigner_chain_sum_kernel(const float* __restrict__ partial,
+                                        float* __restrict__ dangles, int B,
+                                        int slots) {
   const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= 3LL * B) return;
-  const long long b = k / 3, r = k - b * 3;
   float acc = 0.f;
-  for (int tl = 0; tl < tiles; ++tl) acc += partial[(b * tiles + tl) * 3 + r];
+  for (int sl = 0; sl < slots; ++sl) acc += partial[sl * 3LL * B + k];
   dangles[k] = acc;
 }
 
-// channels per tile when `buffers` (S, ct) tiles and `extra` floats share
-// the 48 KB; 0 if not even one column fits
-int tile_width(int L, int C, int buffers, int extra) {
-  const int L1 = L + 1, S = L1 * L1;
-  const size_t fixed = sizeof(float) * ((size_t)j_offset(L1) + 6 * L1 + extra);
-  const size_t per_col = sizeof(float) * buffers * (size_t)S;
-  if (fixed + per_col > kSmemLimit) return 0;
-  const int ct = (int)((kSmemLimit - fixed) / per_col);
-  return ct > C ? C : ct;
+using FwdKernel = void (*)(const float*, const float*, float*, float*,
+                           float*, int, int, int, int, int, int, int);
+using BwdKernel = void (*)(const float*, const float*, const float*,
+                           const float*, const float*, float*, float*, int,
+                           int, int, int, int, int, int);
+
+// The instantiations: one per cap on the degree, the launch taking the
+// smallest cap >= L. A kernel's registers follow its largest column, and
+// every degree in a cap would be built again in each larger one.
+constexpr int kCaps[] = {3, 6, 10, kMaxDegree};
+
+int cap_index(int L) {
+  int i = 0;
+  while (kCaps[i] < L) ++i;
+  return i;
 }
 
-size_t smem_bytes(int L, int ct, int buffers, int extra) {
-  const int L1 = L + 1, S = L1 * L1;
-  return sizeof(float) * ((size_t)j_offset(L1) + 6 * L1 + extra
-                          + (size_t)buffers * S * ct);
+template <bool kResiduals>
+FwdKernel fwd_kernel(int L) {
+  static const FwdKernel table[] = {
+      &wigner_chain_fwd_kernel<kCaps[0], kResiduals>,
+      &wigner_chain_fwd_kernel<kCaps[1], kResiduals>,
+      &wigner_chain_fwd_kernel<kCaps[2], kResiduals>,
+      &wigner_chain_fwd_kernel<kCaps[3], kResiduals>};
+  return table[cap_index(L)];
 }
 
-int launch_fwd(const void* angles, const void* x, const void* jpacked,
-               void* out, void* y, void* z, int B, int L, int C,
-               int per_sample, void* stream) {
-  if (B < 0 || L < 0 || C <= 0) return 1;
+BwdKernel bwd_kernel(int L) {
+  static const BwdKernel table[] = {
+      &wigner_chain_bwd_kernel<kCaps[0]>, &wigner_chain_bwd_kernel<kCaps[1]>,
+      &wigner_chain_bwd_kernel<kCaps[2]>, &wigner_chain_bwd_kernel<kCaps[3]>};
+  return table[cap_index(L)];
+}
+
+// Threads of a block over nb samples x ct channels, ctiles channel tiles.
+struct Plan {
+  int nb, ct, ctiles;
+  dim3 grid, block;
+  size_t smem;
+};
+
+Plan plan(int B, int L, int C, bool backward) {
+  Plan p;
+  p.ctiles = (C + kThreads - 1) / kThreads;
+  p.ct = (C + p.ctiles - 1) / p.ctiles;
+  p.nb = kThreads / p.ct;
+  // trig of nb samples, and the backward's 3 sums a thread, within 48 KB
+  const size_t per_sample = sizeof(float2) * 3 * (L + 1)
+                            + (backward ? sizeof(float) * 3 * p.ct : 0);
+  if ((size_t)p.nb * per_sample > kSmemLimit)
+    p.nb = (int)(kSmemLimit / per_sample);
+  if (p.nb > B) p.nb = B;
+  p.grid = dim3((unsigned)(((B + p.nb - 1) / p.nb) * p.ctiles),
+                (unsigned)(L + 1));
+  p.block = dim3((unsigned)(p.nb * p.ct));
+  p.smem = (size_t)p.nb * per_sample;
+  return p;
+}
+
+bool takes(int B, int L, int C) {
+  return B >= 0 && L >= 0 && L <= kMaxDegree && C > 0;
+}
+
+int launch_fwd(const void* angles, const void* x, void* out, void* y,
+               void* z, int B, int L, int C, int per_sample, void* stream) {
+  if (!takes(B, L, C)) return 1;
   if (B == 0) return 0;
-  const int ct = tile_width(L, C, 2, 0);
-  if (ct == 0) return 1;
-  const dim3 grid(B, (C + ct - 1) / ct);
-  const size_t smem = smem_bytes(L, ct, 2, 0);
-  const long long stride = per_sample ? (long long)(L + 1) * (L + 1) * C : 0;
-  if (y != nullptr)
-    wigner_chain_fwd_kernel<true><<<grid, kThreads, smem,
-                                    (cudaStream_t)stream>>>(
-        (const float*)angles, (const float*)x, (const float*)jpacked,
-        (float*)out, (float*)y, (float*)z, L, C, ct, stride);
-  else
-    wigner_chain_fwd_kernel<false><<<grid, kThreads, smem,
-                                     (cudaStream_t)stream>>>(
-        (const float*)angles, (const float*)x, (const float*)jpacked,
-        (float*)out, nullptr, nullptr, L, C, ct, stride);
+  const Plan p = plan(B, L, C, false);
+  const FwdKernel k = y != nullptr ? fwd_kernel<true>(L)
+                                   : fwd_kernel<false>(L);
+  k<<<p.grid, p.block, p.smem, (cudaStream_t)stream>>>(
+      (const float*)angles, (const float*)x, (float*)out, (float*)y,
+      (float*)z, B, L, C, p.nb, p.ct, p.ctiles, per_sample);
   return (int)cudaGetLastError();
 }
 
@@ -330,61 +441,60 @@ int launch_fwd(const void* angles, const void* x, const void* jpacked,
 // 1 marks arguments the kernels do not take. per_sample is 0 for a
 // spectrum x shared by the batch and 1 for a (B, S, C) one.
 
+// J_0 .. J_16 packed row-major, kJSize floats from host memory, into the
+// current device's constant memory: once per device, before any launch.
+extern "C" int wigner_chain_load_j(const void* j, int n) {
+  if (j == nullptr || n != kJSize) return 1;
+  return (int)cudaMemcpyToSymbol(kJ, j, sizeof(float) * kJSize);
+}
+
 // out = W(angles) x
-extern "C" int wigner_chain_fwd(const void* angles, const void* x,
-                                const void* jpacked, void* out, int B, int L,
-                                int C, int per_sample, void* stream) {
-  return launch_fwd(angles, x, jpacked, out, nullptr, nullptr, B, L, C,
-                    per_sample, stream);
+extern "C" int wigner_chain_fwd(const void* angles, const void* x, void* out,
+                                int B, int L, int C, int per_sample,
+                                void* stream) {
+  return launch_fwd(angles, x, out, nullptr, nullptr, B, L, C, per_sample,
+                    stream);
 }
 
 // out, and the residuals y = J Z(g) x and z = J Z(b) y, (B, S, C) each
 extern "C" int wigner_chain_fwd_res(const void* angles, const void* x,
-                                    const void* jpacked, void* out, void* y,
-                                    void* z, int B, int L, int C,
-                                    int per_sample, void* stream) {
+                                    void* out, void* y, void* z, int B,
+                                    int L, int C, int per_sample,
+                                    void* stream) {
   if (y == nullptr || z == nullptr) return 1;
-  return launch_fwd(angles, x, jpacked, out, y, z, B, L, C, per_sample,
-                    stream);
+  return launch_fwd(angles, x, out, y, z, B, L, C, per_sample, stream);
 }
 
-// Channel tiles per sample of the backward, the size of its scratch's
-// middle axis; 0 if the degree does not fit.
-extern "C" int wigner_chain_bwd_tiles(int L, int C) {
-  if (L < 0 || C <= 0) return 0;
-  const int ct = tile_width(L, C, 5, 3 * kThreads);
-  return ct == 0 ? 0 : (C + ct - 1) / ct;
+// Slots of the backward's scratch a sample: its (L + 1) degrees times its
+// channel tiles; 0 for arguments the kernels do not take.
+extern "C" int wigner_chain_bwd_slots(int L, int C) {
+  if (!takes(1, L, C)) return 0;
+  return (L + 1) * plan(1, L, C, true).ctiles;
 }
 
 // From the cotangent dout of out (B, S, C) and the residuals y, z: dx
 // (B, S, C) per sample (skipped when dx is null) and dangles (B, 3).
-// `partial` is scratch of (B, tiles, 3) floats, unused with one tile.
+// `partial` is scratch of (slots, B, 3) floats, slots from
+// wigner_chain_bwd_slots.
 extern "C" int wigner_chain_bwd(const void* angles, const void* x,
-                                const void* jpacked, const void* y,
-                                const void* z, const void* dout, void* dx,
-                                void* dangles, void* partial, int B, int L,
-                                int C, int per_sample, void* stream) {
-  if (B < 0 || L < 0 || C <= 0) return 1;
+                                const void* y, const void* z,
+                                const void* dout, void* dx, void* dangles,
+                                void* partial, int B, int L, int C,
+                                int per_sample, void* stream) {
+  if (!takes(B, L, C) || partial == nullptr) return 1;
   if (B == 0) return 0;
-  const int ct = tile_width(L, C, 5, 3 * kThreads);
-  if (ct == 0) return 1;
-  const int tiles = (C + ct - 1) / ct;
-  if (tiles > 1 && partial == nullptr) return 1;
-  const dim3 grid(B, tiles);
-  const size_t smem = smem_bytes(L, ct, 5, 3 * kThreads);
-  const long long stride = per_sample ? (long long)(L + 1) * (L + 1) * C : 0;
+  const Plan p = plan(B, L, C, true);
   cudaStream_t st = (cudaStream_t)stream;
-  float* sums = tiles > 1 ? (float*)partial : (float*)dangles;
-  wigner_chain_bwd_kernel<<<grid, kThreads, smem, st>>>(
-      (const float*)angles, (const float*)x, (const float*)jpacked,
-      (const float*)y, (const float*)z, (const float*)dout, (float*)dx, sums,
-      L, C, ct, stride);
-  if (tiles > 1) {
-    const int err = (int)cudaGetLastError();
-    if (err != 0) return err;
-    const int n = 3 * B;
-    sum_tiles_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-        sums, (float*)dangles, B, tiles);
-  }
+  const BwdKernel k = bwd_kernel(L);
+  k<<<p.grid, p.block, p.smem, st>>>(
+      (const float*)angles, (const float*)x, (const float*)y,
+      (const float*)z, (const float*)dout, (float*)dx, (float*)partial, B, L,
+      C, p.nb, p.ct, p.ctiles, per_sample);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const int slots = (L + 1) * p.ctiles;
+  const int n = 3 * B;
+  wigner_chain_sum_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      (const float*)partial, (float*)dangles, B, slots);
   return (int)cudaGetLastError();
 }

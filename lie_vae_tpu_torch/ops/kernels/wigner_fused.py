@@ -5,9 +5,25 @@ the group action of the action decoder, with or without the residuals
 y = J Z(g) x and z = J Z(b) y, and the backward: dx and the angle
 gradients from the cotangent of out. It replaces the TPU kernel
 ``_chain_kernel`` of the JAX package's ``ops/kernels/wigner_fused.py``
-(without residuals for inference, with them for training) and that
-kernel's custom-VJP backward ``op_bwd``; the source says how the design
-differs and what bounds it on an H100.
+(``:127``; without residuals through ``_plain_kernel``, ``:158``, call
+``:208``, for inference: K1; with them, call ``:194``, for training: K2's
+forward) and that kernel's custom-VJP backward ``op_bwd`` (``:240-261``:
+K2's backward).
+
+On an H100 the chain is bound by the bytes it moves: per sample (L = 6,
+C = 10) K1 writes 1960 B, K2's forward 5880 B, and K2's backward reads
+5880 B and writes 1960 B. K1 does about 12 float32 operations per byte
+with dense J products and 5 with J's zeros skipped (K2 fewer), against
+the card's 20 per byte outside the tensor cores. So the kernels use no
+tensor cores (TF32's 3 digits would also break their 1e-5 tolerance). The chain is
+block-diagonal by degree, and the design follows: one thread per column
+(sample b, degree l, channel c) keeps its 2l+1 values in registers through
+every pass; blocks hold one degree, heaviest first; J_0 .. J_16 sit in
+constant memory (``j_table``, loaded once per device) and only the entries
+``j_coupled`` allows are multiplied; the backward sums each sample's
+column terms in a fixed order in two passes, with no atomics, so a run
+repeats bit for bit. The source's head note has the details.
+
 :func:`block_wigner_matrix_multiply_fused` launches them for CUDA tensors
 (the backward through a ``torch.autograd.Function``) and runs the plain
 chain (:func:`~lie_vae_tpu_torch.ops.wigner.block_wigner_apply_zjz`) for
@@ -23,30 +39,68 @@ from torch.autograd.function import once_differentiable
 from lie_vae_tpu_torch.ops.kernels import _build
 from lie_vae_tpu_torch.ops.wigner import block_wigner_apply_zjz, j_matrix
 
-__all__ = ["block_wigner_matrix_multiply_fused", "packed_j"]
+__all__ = ["block_wigner_matrix_multiply_fused", "j_coupled", "j_table",
+           "packed_j", "MAX_DEGREE"]
+
+MAX_DEGREE = 16      # the degrees the kernels take (ops/jd_tables.npz)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = ctypes.CDLL(_build.build("wigner_chain"))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.wigner_chain_fwd.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
-    lib.wigner_chain_fwd_res.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
-    lib.wigner_chain_bwd.argtypes = [ptr] * 9 + [i32] * 4 + [ptr]
-    lib.wigner_chain_bwd_tiles.argtypes = [i32, i32]
-    for fn in (lib.wigner_chain_fwd, lib.wigner_chain_fwd_res,
-               lib.wigner_chain_bwd, lib.wigner_chain_bwd_tiles):
+    lib.wigner_chain_load_j.argtypes = [ptr, i32]
+    lib.wigner_chain_fwd.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+    lib.wigner_chain_fwd_res.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+    lib.wigner_chain_bwd.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+    lib.wigner_chain_bwd_slots.argtypes = [i32, i32]
+    for fn in (lib.wigner_chain_load_j, lib.wigner_chain_fwd,
+               lib.wigner_chain_fwd_res, lib.wigner_chain_bwd,
+               lib.wigner_chain_bwd_slots):
         fn.restype = i32
     return lib
 
 
 @functools.lru_cache(maxsize=None)
+def _lib_on(device):
+    """The library, with ``j_table()`` in ``device``'s constant memory."""
+    lib = _lib()
+    table = j_table()
+    with torch.cuda.device(device):
+        rc = lib.wigner_chain_load_j(table.ctypes.data, table.size)
+    if rc != 0:
+        raise RuntimeError(f"wigner_chain_load_j failed: CUDA error {rc}")
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def j_table(dtype=np.float32):
+    """J_0 .. J_16, each row-major, concatenated: J_l starts at
+    l (4 l^2 - 1) / 3, 6545 values in host memory. In float32 it is what
+    the kernels hold in constant memory."""
+    return np.concatenate([j_matrix(l).reshape(-1)
+                           for l in range(MAX_DEGREE + 1)]).astype(dtype)
+
+
+@functools.lru_cache(maxsize=None)
 def packed_j(max_degree, device):
-    """J_0 .. J_L, each row-major, concatenated: float32 on ``device``,
+    """J_0 .. J_L of ``j_table``: float32 on ``device``,
     (L+1)(4(L+1)^2 - 1)/3 values (455 for L = 6)."""
-    flat = np.concatenate([j_matrix(l).reshape(-1)
-                           for l in range(max_degree + 1)])
-    return torch.as_tensor(flat, dtype=torch.float32, device=device)
+    n = (max_degree + 1) * (4 * (max_degree + 1) ** 2 - 1) // 3
+    return torch.as_tensor(j_table()[:n], device=device)
+
+
+def j_coupled(l, i, k):
+    """Whether the kernels multiply J_l[i, k]: the twin of the source's
+    ``j_coupled``. Row i has frequency f = l - i; with s = (f > 0) and
+    p = (f odd), J_l couples i and k only where s ^ p agree, and their
+    signs s then agree exactly where s ^ p equals l's parity. Every other
+    entry of every table is 0 up to the tables' rounding (tested), so the
+    kernels skip it."""
+    fi, fk = l - i, l - k
+    qi = (fi > 0) != bool(fi & 1)
+    qk = (fk > 0) != bool(fk & 1)
+    return qi == qk and (((fi > 0) == (fk > 0)) == (qi == bool(l & 1)))
 
 
 def _check(rc, name, B, L, C):
@@ -64,12 +118,11 @@ def _launch(angles, spectrum, max_degree):
     B, S = angles.shape[0], (max_degree + 1) ** 2
     C = spectrum.shape[-1]
     out = torch.empty((B, S, C), dtype=torch.float32, device=angles.device)
-    jp = packed_j(max_degree, angles.device)
+    lib = _lib_on(angles.device)
     with torch.cuda.device(angles.device):
-        rc = _lib().wigner_chain_fwd(
-            angles.data_ptr(), spectrum.data_ptr(), jp.data_ptr(),
-            out.data_ptr(), B, max_degree, C, int(spectrum.dim() == 3),
-            _stream())
+        rc = lib.wigner_chain_fwd(
+            angles.data_ptr(), spectrum.data_ptr(), out.data_ptr(), B,
+            max_degree, C, int(spectrum.dim() == 3), _stream())
     _check(rc, "wigner_chain_fwd", B, max_degree, C)
     block_wigner_matrix_multiply_fused.launches += 1
     return out
@@ -81,11 +134,11 @@ def _launch_residuals(angles, spectrum, max_degree):
     C = spectrum.shape[-1]
     out, y, z = (torch.empty((B, S, C), dtype=torch.float32,
                              device=angles.device) for _ in range(3))
-    jp = packed_j(max_degree, angles.device)
+    lib = _lib_on(angles.device)
     with torch.cuda.device(angles.device):
-        rc = _lib().wigner_chain_fwd_res(
-            angles.data_ptr(), spectrum.data_ptr(), jp.data_ptr(),
-            out.data_ptr(), y.data_ptr(), z.data_ptr(), B, max_degree, C,
+        rc = lib.wigner_chain_fwd_res(
+            angles.data_ptr(), spectrum.data_ptr(), out.data_ptr(),
+            y.data_ptr(), z.data_ptr(), B, max_degree, C,
             int(spectrum.dim() == 3), _stream())
     _check(rc, "wigner_chain_fwd_res", B, max_degree, C)
     block_wigner_matrix_multiply_fused.launches_residuals += 1
@@ -101,20 +154,20 @@ def _launch_backward(angles, spectrum, y, z, dout, max_degree, want_dx):
     dx = torch.empty((B, S, C), dtype=torch.float32, device=dev) \
         if want_dx else None
     dangles = torch.empty((B, 3), dtype=torch.float32, device=dev)
-    lib = _lib()
-    tiles = lib.wigner_chain_bwd_tiles(max_degree, C)
-    if tiles == 0:
-        raise ValueError(f"wigner_chain_bwd takes no degree L={max_degree}")
-    partial = torch.empty((B, tiles, 3), dtype=torch.float32, device=dev) \
-        if tiles > 1 else None
-    jp = packed_j(max_degree, dev)
+    lib = _lib_on(dev)
+    slots = lib.wigner_chain_bwd_slots(max_degree, C)
+    if slots == 0:
+        raise ValueError(f"wigner_chain_bwd takes no degree L={max_degree} "
+                         f"with C={C}")
+    # each sample's column sums by degree and channel tile, added in order
+    partial = torch.empty((slots, B, 3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.wigner_chain_bwd(
-            angles.data_ptr(), spectrum.data_ptr(), jp.data_ptr(),
-            y.data_ptr(), z.data_ptr(), dout.data_ptr(),
+            angles.data_ptr(), spectrum.data_ptr(), y.data_ptr(),
+            z.data_ptr(), dout.data_ptr(),
             dx.data_ptr() if want_dx else None, dangles.data_ptr(),
-            partial.data_ptr() if partial is not None else None,
-            B, max_degree, C, int(spectrum.dim() == 3), _stream())
+            partial.data_ptr(), B, max_degree, C, int(spectrum.dim() == 3),
+            _stream())
     _check(rc, "wigner_chain_bwd", B, max_degree, C)
     block_wigner_matrix_multiply_fused.launches_backward += 1
     return dx, dangles
@@ -168,6 +221,9 @@ def block_wigner_matrix_multiply_fused(angles, spectrum, max_degree,
         raise ValueError(f"angles on {angles.device} and spectrum on "
                          f"{spectrum.device}: both must be on one CUDA "
                          "device, or both on the CPU")
+    if not 0 <= max_degree <= MAX_DEGREE:
+        raise ValueError(f"the chain kernels take degrees 0 to {MAX_DEGREE}, "
+                         f"not {max_degree}")
     S = (max_degree + 1) ** 2
     if angles.dim() != 2 or angles.shape[1] != 3:
         raise ValueError(f"angles must be (B, 3), got {tuple(angles.shape)}")

@@ -13,8 +13,9 @@ against ``jax.vjp`` of the JAX plain chain with the same cotangent, in
 float64 at 1e-10, over L in {0, 1, 3}, shared and per-sample, transpose on
 and off.
 
-The CUDA kernels themselves run only on a card: ``test_kernel_matches_plain``
-and ``test_backward_kernel_matches_autograd`` are marked ``cuda`` and skip
+The CUDA kernels themselves run only on a card: ``test_kernel_matches_plain``,
+``test_backward_kernel_matches_autograd`` and
+``test_chain_kernels_repeat_bit_for_bit`` are marked ``cuda`` and skip
 elsewhere.
 """
 import numpy as np
@@ -225,8 +226,7 @@ def test_backward_kernel_matches_autograd(cuda_device, L):
     """K2 (forward with residuals, then the backward kernel) against
     autograd of the plain chain on the card, float32: d angles and
     d spectrum within 1e-4 * max(1, max |reference|), sums of up to
-    S * C * B float32 terms taken in another order. C = 40 at L = 10 spans
-    three channel tiles of the backward."""
+    S * C * B float32 terms taken in another order."""
     fused = wigner_fused.block_wigner_matrix_multiply_fused
     for shared in (True, False):
         for B, C in ((1, 1), (64, 10), (4103, 16), (5, 40)):
@@ -252,3 +252,26 @@ def test_backward_kernel_matches_autograd(cuda_device, L):
                 for got, want in zip(*grads):
                     tol = 1e-4 * max(1.0, float(want.abs().max()))
                     assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "batched"])
+@pytest.mark.parametrize("B, C", [(64, 10), (64, 100), (4103, 10),
+                                  (4103, 100), (5, 130)])
+def test_chain_kernels_repeat_bit_for_bit(cuda_device, shared, B, C):
+    """K1, K2's forward and K2's backward give the same bits twice on the
+    same inputs: fixed-order sums, no atomics. C = 130 spans two channel
+    tiles."""
+    angles, spec = _inputs(6, shared, np.float32, B=B, C=C)
+    a = torch.tensor(angles, device=cuda_device)
+    x = torch.tensor(spec, device=cuda_device)
+    G = torch.tensor(np.random.default_rng(B + C).normal(size=(B, 49, C)),
+                     dtype=torch.float32, device=cuda_device)
+    runs = []
+    for _ in range(2):
+        out = wigner_fused._launch(a, x, 6)
+        res = wigner_fused._launch_residuals(a, x, 6)
+        runs.append((out,) + res + wigner_fused._launch_backward(
+            a, x, res[1], res[2], G, 6, True))
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
