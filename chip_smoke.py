@@ -9,9 +9,9 @@ Phases, each timed:
 1. card: name and power limit (nvidia-smi), torch, CUDA and nvcc versions;
 2. build: the Wigner chain kernels (csrc/wigner_chain.cu), the density
    kernels (csrc/so3_density.cu) and the synthesise-then-apply Wigner
-   kernels (csrc/wigner_block.cu), one nvcc each, started together with a
-   fourth that compiles the chain kernels with ``-Xptxas -v`` to report
-   each one's registers, stack frame and spills;
+   kernels (csrc/wigner_block.cu), one nvcc each, started together with
+   three more that compile each source with ``-Xptxas -v`` to report each
+   kernel's registers, stack frame and spills;
 3. K1, the chain kernel without residuals, against the plain chain on the
    card over L in {0, 1, 3, 6, 10}, C in {1, 10, 16}, B in {1, 64, 4103},
    shared and per-sample spectra, transpose on and off; then both timed
@@ -30,10 +30,16 @@ Phases, each timed:
    samples (the last as n = 4 samples of a batch of 16384), k in
    {0, 1, 10}, sigma from 1e-6 to pi * 10 / 2, v = 0 and |v| near
    multiples of 2 pi; timed at N = 64 and N = 4096;
-6. K5 and K6, the synthesise-then-apply Wigner kernel and its backward,
-   against the plain version and its autograd over K1's grid: the output,
-   K6's six outputs, and the angle and spectrum gradients through the
-   autograd Function; timed at B = 64 and B = 4096 (L = 6, C = 10, shared);
+6. K5 and K6, the synthesise-then-apply Wigner kernel and its backward
+   (angles in, trig formed in the kernel; d angles and d spectrum out),
+   against the plain version (``trig_features`` then
+   ``wigner_block_apply_plain``) and its autograd over K1's grid: the
+   output, K6's outputs, and the gradients through the autograd Function;
+   then every degree from 0 to 16 at C in {3, 130}, and each run twice on
+   the same inputs (8 cases) to repeat bit for bit; timed at B = 64 and
+   B = 4096 (L = 6, C = 10, shared) with CUDA events, and by device time
+   from a CUDA graph of 20 launches, for K5, K6 and the whole op forward
+   and forward with backward;
 7. serving: the flagship model with the converged reference weights
    (converged_state/torch_clean/best.pt), batch 64, on the card: warmup,
    sample, encode, reconstruct, geodesic and a ragged decode, checked for
@@ -158,42 +164,13 @@ def cuda_ms(fn, trials=20, per_trial=10):
     return statistics.median(times)
 
 
-def device_us(fn, launches=20, replays=20):
-    """Median over ``replays`` of the device µs per call of ``fn``: a warm-up
-    call, then ``launches`` calls captured in one CUDA graph, whose replays
-    are timed with CUDA events (the host's enqueue drops out)."""
-    fn()
-    torch.cuda.synchronize()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(launches):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(replays):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(1e3 * start.elapsed_time(end) / launches)
-    return statistics.median(times)
-
-
-def ptxas_report(text):
+def ptxas_report(text, source):
     """{kernel: (registers, stack bytes, spill stores, spill loads)} from
-    ``nvcc -Xptxas -v`` on csrc/wigner_chain.cu; a kernel is named by its
-    kind and its degree cap, e.g. ``fwd_res<6>``."""
+    ``nvcc -Xptxas -v`` on csrc/<source>.cu; a kernel is named by its kind
+    and its degree cap, e.g. ``fwd_res<6>``."""
     report, name = {}, None
     for line in text.splitlines():
-        m = re.search(r"Compiling entry function '\S*?wigner_chain_(fwd|bwd|"
+        m = re.search(rf"Compiling entry function '\S*?{source}_(fwd|bwd|"
                       r"sum)_kernel(?:ILi(\d+)E(?:Lb([01])E)?E)?", line)
         if m:
             kind, cap, res = m.groups()
@@ -277,27 +254,28 @@ def _bound(nbytes, flops):
         "operations"
 
 
-def block_bound(B, L, C, shared, backward, nnz):
-    """K5 (or K6 with ``backward``) on an H100 SXM: t, ca, sa, cg, sg and the
-    spectrum read once, the ``nnz`` non-zero coefficients once, the output
-    written once (K6: dout read too; dt, dca, dsa, dcg, dsg and the
-    per-sample dspec written), against the float32 operations per sample:
-    the synthesis, 2 sum_l (2l+1)^3, W, 8 n_j, and the product, 2 n_j C
-    (K6: the synthesis, W, A and dspec, 2 n_j C each, the cotangent H of d
-    and the four row and column sums, 12 n_j and 16 n_j, and the dt
-    contraction, 2 sum_l (2l+1)^3)."""
-    S, M = (L + 1) ** 2, 2 * L + 1
-    n_j = (L + 1) * (4 * (L + 1) ** 2 - 1) // 3
-    n_c = sum((2 * l + 1) ** 3 for l in range(L + 1))
+def block_bound(B, L, C, shared, backward):
+    """K5 (or K6 with ``backward``) on an H100 SXM: the angles, the spectrum
+    and the coefficients the kernels read (597 for L = 6) read once, the
+    output written once (K6: dout read too; d angles and the per-sample d
+    spectrum written), against the float32 operations per column: an FMA
+    per coefficient and one per row of each coefficient block for d u, and
+    two z-rotations of 6 operations per pair of rows (K6: two FMAs per
+    coefficient, three per block row for w, dt and the scaled cotangent,
+    three z-rotations and two angle contractions)."""
+    from lie_vae_tpu_torch.ops.kernels.wigner_block import (c_offset,
+                                                             coupled_blocks)
+    S, nnz = (L + 1) ** 2, c_offset(L + 1)
+    rows = sum(len(r) for l in range(L + 1) for s in range(2 * l + 1)
+               for r, _ in coupled_blocks(l, s))
+    pairs = L * (L + 1) // 2
     spec = S * C * (1 if shared else B)
-    feats = B * (M + 4 * S)
     if backward:
-        nbytes = 4 * (feats + spec + nnz + B * S * C
-                      + B * (M + 4 * S) + B * S * C)
-        flops = B * (4 * n_c + 8 * n_j + 4 * n_j * C + 28 * n_j)
+        nbytes = 4 * (3 * B + spec + nnz + 2 * B * S * C + 3 * B)
+        flops = B * C * (4 * nnz + 6 * rows + 26 * pairs)
     else:
-        nbytes = 4 * (feats + spec + nnz + B * S * C)
-        flops = B * (2 * n_c + 8 * n_j + 2 * n_j * C)
+        nbytes = 4 * (3 * B + spec + nnz + B * S * C)
+        flops = B * C * (2 * nnz + 2 * rows + 12 * pairs)
     return _bound(nbytes, flops)
 
 
@@ -309,6 +287,30 @@ def plain_block(angles, spectrum, L, transpose=False):
         trig_features, wigner_block_apply_plain)
     return wigner_block_apply_plain(*trig_features(angles, L), spectrum, L,
                                     transpose=transpose)
+
+
+def check_block(L, angles, x, dout, tr):
+    """K5's output and K6's (d angles, d spectrum) against the plain
+    version and its autograd, and the same gradients through the autograd
+    Function: (|K5 - plain|, its tolerance, K6's largest absolute error,
+    the worst gradient error of max(1, max|ref|))."""
+    from lie_vae_tpu_torch.ops.kernels import wigner_block
+    got = wigner_block._launch(angles, x, L, tr)
+    a, xx = angles.clone().requires_grad_(), x.clone().requires_grad_()
+    ref = plain_block(a, xx, L, tr)
+    want = torch.autograd.grad(ref, (a, xx), dout)
+    dang, dspec = wigner_block._launch_backward(angles, x, dout, L, tr, True)
+    k6 = (dang, dspec.sum(0) if x.dim() == 2 else dspec)
+    a, xx = angles.clone().requires_grad_(), x.clone().requires_grad_()
+    through = torch.autograd.grad(
+        wigner_block.block_wigner_matrix_multiply_pallas(
+            a, xx, L, transpose=tr), (a, xx), dout)
+    if got.is_cuda:
+        torch.cuda.synchronize()
+    return ((got - ref).abs().max().item(),
+            KERNEL_TOL * max(1.0, x.abs().max().item()),
+            max(max_rel(g, w)[0] for g, w in zip(k6, want)),
+            max(max_rel(g, w)[1] for g, w in zip(k6 + through, want + want)))
 
 
 def check_rotations(R, what):
@@ -475,6 +477,7 @@ def main():
     from lie_vae_tpu_torch.ops.kernels import wigner_block
     from lie_vae_tpu_torch.ops.kernels import wigner_fused
     from lie_vae_tpu_torch.ops.wigner import block_wigner_apply_zjz
+    from lie_vae_tpu_torch.profile_serve import device_us
     from lie_vae_tpu_torch.serve import InferenceSession
     from lie_vae_tpu_torch.train import train_step
 
@@ -510,25 +513,25 @@ def main():
         _build.build(name)
         return time.perf_counter() - tb
 
-    def ptxas():
+    def ptxas(name):
         os.makedirs(_build.BUILD_DIR, exist_ok=True)
-        return subprocess.run(
+        return ptxas_report(subprocess.run(
             [_build.nvcc_path(), *_build.NVCC_FLAGS[:4], "-cubin", "-Xptxas",
-             "-v", "-o", os.path.join(_build.BUILD_DIR, "wigner_chain.cubin"),
-             os.path.join(_build.CSRC, "wigner_chain.cu")],
-            capture_output=True, text=True, check=True).stderr
+             "-v", "-o", os.path.join(_build.BUILD_DIR, f"{name}.cubin"),
+             os.path.join(_build.CSRC, f"{name}.cu")],
+            capture_output=True, text=True, check=True).stderr, name)
 
-    with ThreadPoolExecutor(len(sources) + 1) as pool:
-        ptxas_text = pool.submit(ptxas)
+    with ThreadPoolExecutor(2 * len(sources)) as pool:
+        ptxas_runs = [pool.submit(ptxas, n) for n in sources]
         build_s = dict(zip(sources, pool.map(timed_build, sources)))
-        ptxas_chain = ptxas_report(ptxas_text.result())
+        ptxas_all = {n: r.result() for n, r in zip(sources, ptxas_runs)}
     for n in sources:
         print(f"   {n}: {build_s[n]:.2f} s "
               f"({'already built' if cached[n] else 'nvcc'}) -> "
               f"{_build.library_path(n)}")
-    print("   wigner_chain.cu, ptxas (registers, stack frame, spill stores, "
-          "spill loads in bytes): " + "; ".join(
-              f"{k} {v}" for k, v in ptxas_chain.items()))
+        print(f"   {n}.cu, ptxas (registers, stack frame, spill stores, "
+              "spill loads in bytes): " + "; ".join(
+                  f"{k} {v}" for k, v in ptxas_all[n].items()))
     done(t0)
 
     t0 = phase("K1: Wigner chain kernel vs plain chain on the card")
@@ -784,6 +787,7 @@ def main():
     t0 = phase("K5/K6: synthesise-then-apply Wigner kernel and its backward "
                "vs the plain version and its autograd on the card")
     k5_err = {"fwd": 0.0, "bwd": 0.0}
+
     for L in (0, 1, 3, 6, 10):
         S = (L + 1) ** 2
         n, worst_f, worst_g = 0, 0.0, 0.0
@@ -791,80 +795,118 @@ def main():
             for B in (1, 64, 4103):
                 angles = group_matrix_to_eazyz(random_group_matrices(
                     B, gen, device="cpu").to(dev)).contiguous()
-                feats = [f.contiguous() for f in
-                         wigner_block.trig_features(angles, L)]
                 for shared in (True, False):
                     x = torch.randn((S, C) if shared else (B, S, C),
                                     generator=gen).to(dev)
                     dout = torch.randn((B, S, C), generator=gen).to(dev)
                     for tr in (False, True):
-                        # K5 and K6 against the plain version
-                        got = wigner_block._launch(*feats, x, L, tr)
-                        ins = [f.clone().requires_grad_() for f in feats] \
-                            + [x.clone().requires_grad_()]
-                        ref = wigner_block.wigner_block_apply_plain(
-                            *ins, L, transpose=tr)
-                        want = torch.autograd.grad(ref, ins, dout)
-                        *k6, dspec = wigner_block._launch_backward(
-                            *feats, x, dout, L, tr, True)
-                        k6.append(dspec.sum(0) if shared else dspec)
-                        e_out = (got - ref).abs().max().item()
-                        tol_out = KERNEL_TOL * max(1.0, x.abs().max().item())
-                        r_k6 = max(max_rel(a, b)[1] for a, b in zip(k6, want))
-                        # angle and spectrum gradients through the
-                        # autograd Function against the plain version's
-                        res = []
-                        for fn in (block, plain_block):
-                            a = angles.clone().requires_grad_()
-                            xx = x.clone().requires_grad_()
-                            out = fn(a, xx, L, transpose=tr)
-                            res.append(torch.autograd.grad(out, (a, xx),
-                                                           dout))
-                        r_fn = max(max_rel(a, b)[1]
-                                   for a, b in zip(*res))
-                        torch.cuda.synchronize()
-                        if not (e_out <= tol_out and r_k6 <= GRAD_TOL
-                                and r_fn <= GRAD_TOL):
+                        e_out, tol_out, e_k6, r_grad = check_block(
+                            L, angles, x, dout, tr)
+                        if not (e_out <= tol_out and r_grad <= GRAD_TOL):
                             raise AssertionError(
                                 f"K5/K6 != plain: L={L} C={C} B={B} "
                                 f"shared={shared} transpose={tr}: out "
-                                f"{e_out:.3e} (tol {tol_out:.3e}), K6 "
-                                f"outputs {r_k6:.3e}, angle/spectrum "
-                                f"gradients {r_fn:.3e} of max(1, max|ref|) "
-                                f"(tol {GRAD_TOL})")
+                                f"{e_out:.3e} (tol {tol_out:.3e}), K6 and "
+                                f"the gradients through the Function "
+                                f"{r_grad:.3e} of max(1, max|ref|) (tol "
+                                f"{GRAD_TOL})")
                         k5_err["fwd"] = max(k5_err["fwd"], e_out)
-                        k5_err["bwd"] = max(
-                            k5_err["bwd"],
-                            max(max_rel(a, b)[0] for a, b in zip(k6, want)))
+                        k5_err["bwd"] = max(k5_err["bwd"], e_k6)
                         worst_f = max(worst_f, e_out)
-                        worst_g = max(worst_g, r_k6, r_fn)
+                        worst_g = max(worst_g, r_grad)
                         n += 1
         print(f"   L={L:2d}: {n} cases, max |K5 - plain| {worst_f:.3e}, "
               f"max K6 / gradient error {worst_g:.3e} of max(1, max|ref|)")
-    nnz = int(torch.count_nonzero(wigner_block.packed_coeffs(6, dev)))
-    k5_timing = {}
+
+    # every degree the kernels take (above 10 their rolled loops), and a
+    # spectrum wider than one channel tile, from a generator of their own
+    worst_deg = [0.0, 0.0]
+    for L in range(wigner_block.MAX_DEGREE + 1):
+        S = (L + 1) ** 2
+        for C in (3, 130):
+            angles = group_matrix_to_eazyz(random_group_matrices(
+                5, gen_deg, device="cpu").to(dev)).contiguous()
+            dout = torch.randn((5, S, C), generator=gen_deg).to(dev)
+            for shared in (True, False):
+                x = torch.randn((S, C) if shared else (5, S, C),
+                                generator=gen_deg).to(dev)
+                for tr in (False, True):
+                    e_out, tol_out, _, r_grad = check_block(L, angles, x,
+                                                           dout, tr)
+                    if not (e_out <= tol_out and r_grad <= GRAD_TOL):
+                        raise AssertionError(
+                            f"K5/K6 != plain: L={L} C={C} B=5 "
+                            f"shared={shared} transpose={tr}: out "
+                            f"{e_out:.3e} (tol {tol_out:.3e}), gradients "
+                            f"{r_grad:.3e} (tol {GRAD_TOL})")
+                    worst_deg = [max(worst_deg[0], e_out),
+                                 max(worst_deg[1], r_grad)]
+    print(f"   L=0..{wigner_block.MAX_DEGREE}, C in (3, 130), B=5, shared and "
+          f"per-sample, transpose on and off: max |K5 - plain| "
+          f"{worst_deg[0]:.3e}, max K6 / gradient error {worst_deg[1]:.3e} "
+          f"of max(1, max|ref|)")
+
+    # the same inputs twice give the same bits: fixed-order sums, no atomics
+    n_rep = 0
+    for shared in (True, False):
+        for C in (10, 100):
+            for B in (64, 4103):
+                angles = group_matrix_to_eazyz(random_group_matrices(
+                    B, gen_deg, device="cpu").to(dev)).contiguous()
+                x = torch.randn((49, C) if shared else (B, 49, C),
+                                generator=gen_deg).to(dev)
+                dout = torch.randn((B, 49, C), generator=gen_deg).to(dev)
+                runs = [(wigner_block._launch(angles, x, 6, False),)
+                        + wigner_block._launch_backward(angles, x, dout, 6,
+                                                        False, True)
+                        for _ in range(2)]
+                same = [torch.equal(p, q) for p, q in zip(*runs)]
+                if not all(same):
+                    raise AssertionError(
+                        f"K5/K6 differ between two runs (out, dangles, "
+                        f"dspec: {same}): shared={shared} C={C} B={B}")
+                n_rep += 1
+    print(f"   K5 and K6 repeat bit for bit: {n_rep} cases (L=6; shared and "
+          "per-sample, C in (10, 100), B in (64, 4103))")
+
+    k5_timing, block_us, op_us = {}, {}, {}
     for B in (64, 4096):
         angles = group_matrix_to_eazyz(
             random_group_matrices(B, gen, device="cpu").to(dev)).contiguous()
-        feats = [f.contiguous() for f in wigner_block.trig_features(angles, 6)]
         dout = torch.randn((B, 49, 10), generator=gen).to(dev)
-        f_ms = cuda_ms(lambda: wigner_block._launch(*feats, item_rep, 6,
+        f_ms = cuda_ms(lambda: wigner_block._launch(angles, item_rep, 6,
                                                     False))
         b_ms = cuda_ms(lambda: wigner_block._launch_backward(
-            *feats, item_rep, dout, 6, False, True))
-        ins = [f.clone().requires_grad_() for f in feats] \
-            + [item_rep.clone().requires_grad_()]
-        pf_ms = cuda_ms(lambda: wigner_block.wigner_block_apply_plain(
-            *ins, 6))
-        ref = wigner_block.wigner_block_apply_plain(*ins, 6)
-        pb_ms = cuda_ms(lambda: torch.autograd.grad(ref, ins, dout,
+            angles, item_rep, dout, 6, False, True))
+        a = angles.clone().requires_grad_()
+        xx = item_rep.clone().requires_grad_()
+        pf_ms = cuda_ms(lambda: plain_block(a, xx, 6))
+        ref = plain_block(a, xx, 6)
+        pb_ms = cuda_ms(lambda: torch.autograd.grad(ref, (a, xx), dout,
                                                     retain_graph=True))
-        fb = block_bound(B, 6, 10, True, False, nnz)
-        bb = block_bound(B, 6, 10, True, True, nnz)
+        fb = block_bound(B, 6, 10, True, False)
+        bb = block_bound(B, 6, 10, True, True)
         k5_timing[B] = (f_ms, pf_ms, fb, b_ms, pb_ms, bb)
-        print(f"   B={B} L=6 C=10 shared: K5 {f_ms:.4f} ms (plain with grad "
-              f"{pf_ms:.4f}, bound {fb[0]:.6f} {fb[1]}); K6 {b_ms:.4f} ms "
-              f"(plain autograd {pb_ms:.4f}, bound {bb[0]:.6f} {bb[1]})")
+        block_us[B] = (
+            device_us(lambda: wigner_block._launch(angles, item_rep, 6,
+                                                   False)),
+            device_us(lambda: wigner_block._launch_backward(
+                angles, item_rep, dout, 6, False, True)))
+        # the whole op a model calls: forward, and forward with backward
+        # (on leaves of its own: a capture fails where the leaves' autograd
+        # state was first made by the plain version on the default stream)
+        op_us[f"fwd_b{B}"] = device_us(lambda: block(angles, item_rep, 6))
+        a_op = angles.clone().requires_grad_()
+        x_op = item_rep.clone().requires_grad_()
+        op_us[f"fwd_bwd_b{B}"] = device_us(lambda: torch.autograd.grad(
+            block(a_op, x_op, 6), (a_op, x_op), dout))
+        print(f"   B={B} L=6 C=10 shared: K5 {f_ms:.4f} ms (device "
+              f"{block_us[B][0]:.2f} us; plain with grad {pf_ms:.4f}, bound "
+              f"{fb[0]:.6f} {fb[1]}); K6 {b_ms:.4f} ms (device "
+              f"{block_us[B][1]:.2f} us; plain autograd {pb_ms:.4f}, bound "
+              f"{bb[0]:.6f} {bb[1]}); the op, device us: forward "
+              f"{op_us[f'fwd_b{B}']:.2f}, forward and backward "
+              f"{op_us[f'fwd_bwd_b{B}']:.2f}")
     done(t0)
 
     t0 = phase("serving: flagship, converged weights, batch 64, on the card")
@@ -1109,6 +1151,7 @@ def main():
         "ms_b4096": k4k, "plain_ms_b4096": p4k, "bound_ms_b4096": b4k,
         "device_us": us64, "device_us_b4096": us4k}]
     chain_dev = {"wigner_chain_fwd_res": 0, "wigner_chain_bwd": 1}
+    block_dev = {"wigner_block_fwd": 0, "wigner_block_bwd": 1}
     for name, src, replaces, tim, err, launch_key, shape, big in (
             ("wigner_chain_fwd_res", src_chain,
              "lie_vae_tpu/ops/kernels/wigner_fused.py:127", k2_timing,
@@ -1148,8 +1191,12 @@ def main():
         if name in chain_dev:
             kernels[-1]["device_us"] = chain_us[64][chain_dev[name]]
             kernels[-1]["device_us_b4096"] = chain_us[4096][chain_dev[name]]
+        if name in block_dev:
+            kernels[-1]["device_us"] = block_us[64][block_dev[name]]
+            kernels[-1]["device_us_b4096"] = block_us[4096][block_dev[name]]
     record = {"kernels": kernels, "build_s": build_s,
-              "ptxas_wigner_chain": ptxas_chain, "request_ms": req_ms,
+              "ptxas": ptxas_all, "pallas_op_device_us": op_us,
+              "request_ms": req_ms,
               "render_s": render_s,
               "train_step_ms": train_runs["fused"][0],
               "train_step_ms_pallas": train_runs["pallas"][0],

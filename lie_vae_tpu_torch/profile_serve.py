@@ -15,6 +15,7 @@ off, as in ``chip_smoke.py``. The trace files go to ``build/profile/``.
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import time
 
@@ -40,6 +41,35 @@ def _busy_us(events):
             busy += hi - max(lo, end)
             end = hi
     return busy
+
+
+def device_us(fn, launches=20, replays=20):
+    """Median over ``replays`` of the device µs per call of ``fn``: a warm-up
+    call, then ``launches`` calls captured in one CUDA graph, whose replays
+    are timed with CUDA events (the host's enqueue drops out)."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(1e3 * start.elapsed_time(end) / launches)
+    return statistics.median(times)
 
 
 def profile_request(name, fn, reps, out_dir, unit="request of 64",

@@ -97,13 +97,11 @@ def main(argv=None):
                 ("wigner_chain_bwd", lambda: wigner_fused._launch_backward(
                     angles, item_rep, y, z, dout, 6, True)))
         else:
-            feats = [f.contiguous()
-                     for f in wigner_block.trig_features(angles, 6)]
             wigner = (
                 ("wigner_block_fwd", lambda: wigner_block._launch(
-                    *feats, item_rep, 6, False)),
+                    angles, item_rep, 6, False)),
                 ("wigner_block_bwd", lambda: wigner_block._launch_backward(
-                    *feats, item_rep, dout, 6, False, True)))
+                    angles, item_rep, dout, 6, False, True)))
         for name, fn in wigner + (
                 ("so3_density_fwd", lambda: so3_density._launch_fwd(
                     v, sigma, 10, 1e-3)),

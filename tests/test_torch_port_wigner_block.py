@@ -13,8 +13,10 @@ kernels K5/K6) held against the JAX package's.
 - ``impl='pallas'`` and ``'xla'`` of the port's dispatcher on CPU tensors,
   which launch no kernel.
 
-The CUDA kernels themselves run only on a card: the tests marked ``cuda``
-hold K5 and K6 against the plain version there and skip elsewhere.
+The CUDA kernels run only on a card: the tests marked ``cuda`` hold K5
+and K6 against the plain version there, and to their own bits on a second
+run, and skip elsewhere. Their column arithmetic is emulated on the CPU in
+``test_torch_port_wigner_block_column.py``.
 """
 import numpy as np
 import pytest
@@ -161,10 +163,11 @@ def cuda_device():
 @pytest.mark.parametrize("L", (0, 1, 3, 6, 10))
 def test_kernels_match_plain(cuda_device, L):
     """K5 and K6 against the plain version and its autograd on the card,
-    float32: the output within 1e-5 * max(1, max|x|), K6's outputs and the
-    angle and spectrum gradients through the autograd Function within
-    1e-4 * max(1, max|reference|) (sums of up to S * C and, for a shared
-    spectrum, B * S * C terms taken in another order)."""
+    float32: the output within 1e-5 * max(1, max|x|); K6's d angles and d
+    spectrum (``_launch_backward``, from the angles) and the gradients
+    through the autograd Function within 1e-4 * max(1, max|reference|)
+    (sums of up to S * C and, for a shared spectrum, B * S * C terms taken
+    in another order)."""
     fn = wigner_block.block_wigner_matrix_multiply_pallas
     for shared in (True, False):
         for B, C in ((1, 1), (17, 10), (4103, 16)):
@@ -192,6 +195,26 @@ def test_kernels_match_plain(cuda_device, L):
                 (o1, da1, dx1), (o2, da2, dx2) = res
                 assert float((o1 - o2).abs().max()) <= 1e-5 * max(
                     1.0, float(abs(spec).max()))
-                for got, want in ((da1, da2), (dx1, dx2)):
+                dang, dspec = wigner_block._launch_backward(
+                    a.detach(), x.detach(), G, L, tr, True)
+                if shared:
+                    dspec = dspec.sum(0)
+                for got, want in ((da1, da2), (dx1, dx2), (dang, da2),
+                                  (dspec, dx2)):
                     tol = 1e-4 * max(1.0, float(want.abs().max()))
                     assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_kernels_repeat_bit_for_bit(cuda_device):
+    """K5 and K6 twice on the same inputs give the same bits: every sum runs
+    in a fixed order, with no atomics."""
+    for shared in (True, False):
+        for B, C in ((64, 10), (4103, 100)):
+            angles, spec, G = (torch.tensor(v, device=cuda_device) for v in
+                               _inputs(6, B, shared, np.float32, C=C))
+            runs = [(wigner_block._launch(angles, spec, 6, False),)
+                    + wigner_block._launch_backward(angles, spec, G, 6,
+                                                    False, True)
+                    for _ in range(2)]
+            assert all(torch.equal(p, q) for p, q in zip(*runs))
