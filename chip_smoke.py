@@ -27,9 +27,16 @@ Phases, each timed:
    bit;
 5. K3 and K4, the wrapped SO(3) density and its backward, against the
    plain density and its autograd in float64: N in {1, 64, 4103, 65536}
-   samples (the last as n = 4 samples of a batch of 16384), k in
-   {0, 1, 10}, sigma from 1e-6 to pi * 10 / 2, v = 0 and |v| near
-   multiples of 2 pi; timed at N = 64 and N = 4096;
+   samples (the last as n = 4 samples of a batch of 16384) and the IW-LL's
+   n = 500 samples of one item, k in {0, 1, 10}, sigma from 1e-6 to
+   pi * 10 / 2, v = 0 and |v| near multiples of 2 pi; then the KL entry
+   (K3 with the mean over n and the Haar prior folded in, K4 taking its
+   (B,) cotangent) against the plain KL and its autograd, n in {1, 4}, on
+   the same grid; every case run twice to repeat bit for bit; timed at
+   N = 64 and N = 4096 with CUDA events, and by device time from a CUDA
+   graph of 20 launches at N in {64, 4096, 65536} (the KL entry, the
+   training path) and at n = 500, B = 1 (the per-sample entry, the IW-LL's
+   call);
 6. K5 and K6, the synthesise-then-apply Wigner kernel and its backward
    (angles in, trig formed in the kernel; d angles and d spectrum out),
    against the plain version (``trig_features`` then
@@ -86,6 +93,7 @@ CHECKPOINT = os.path.join(ROOT, "converged_state", "torch_clean",
                           "best.pt")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12        # H100 SXM float32, outside the tensor cores
+FP64_FLOP_PER_S = 34e12        # H100 SXM float64, outside the tensor cores
 # kernel vs plain chain: both float32, sums in another order
 KERNEL_TOL = 1e-5
 # chain gradients vs autograd of the plain chain: sums of up to S*C (and,
@@ -166,16 +174,24 @@ def cuda_ms(fn, trials=20, per_trial=10):
 
 def ptxas_report(text, source):
     """{kernel: (registers, stack bytes, spill stores, spill loads)} from
-    ``nvcc -Xptxas -v`` on csrc/<source>.cu; a kernel is named by its kind
-    and its degree cap, e.g. ``fwd_res<6>``."""
+    ``nvcc -Xptxas -v`` on csrc/<source>.cu; a Wigner kernel is named by
+    its kind and its degree cap, e.g. ``fwd_res<6>``, a density kernel by
+    its kind and its template arguments (k or -1 for any k, the lanes a
+    sample, and for K4 whether the cotangent is per row), e.g.
+    ``bwd<10,8,1>``."""
     report, name = {}, None
     for line in text.splitlines():
         m = re.search(rf"Compiling entry function '\S*?{source}_(fwd|bwd|"
-                      r"sum)_kernel(?:ILi(\d+)E(?:Lb([01])E)?E)?", line)
+                      r"sum|kl)_kernel(I(?:L[ib]n?\d+E)+E)?", line)
         if m:
-            kind, cap, res = m.groups()
-            name = (kind + ("_res" if res == "1" else "")
-                    + (f"<{cap}>" if cap else ""))
+            kind, args = m.groups()
+            args = [("-" if neg else "") + val for neg, val in re.findall(
+                r"L[ib](n?)(\d+)E", args or "")]
+            if source == "so3_density":
+                name = kind + (f"<{','.join(args)}>" if args else "")
+            else:
+                name = (kind + ("_res" if args[1:] == ["1"] else "")
+                        + (f"<{args[0]}>" if args else ""))
             report[name] = [None] * 4
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -237,19 +253,24 @@ def chain_bwd_bound(B, L, C, shared):
     return _bound(nbytes, flops)
 
 
-def density_bound(N, B, k, backward):
-    """The wrapped density of N samples with sigma (B, 3): v and sigma read
-    and log q written (backward: g read, dv and dsigma (N, 3) written);
-    about 30 + 11 (2k+1) float32 operations per sample forward and
-    60 + 17 (2k+1) backward, an exp counted as one."""
-    shells = 2 * k + 1
+def density_bound(N, B, k, backward, per_row=True):
+    """The wrapped density of N samples with sigma (B, 3): v and sigma read,
+    and the KL (B,) written, or with ``per_row`` False log q (N,); backward
+    the cotangent (B,) or (N,) read, dv (N, 3) and dsigma (B, 3) written.
+    About 30 + 11 (2k+1) float32 operations per sample forward and
+    60 + 17 (2k+1) backward, there in float64, an exp counted as one.
+    (Before the kernels took the KL's mean and dsigma's sum over n, the
+    bound counted log q and the cotangent per sample, dsigma (N, 3) and the
+    backward in float32: the same at n = 1, bytes bounding both.)"""
+    shells, rows = 2 * k + 1, B if per_row else N
     if backward:
-        return _bound(4 * (3 * N + 3 * B + N + 6 * N), N * (60 + 17 * shells))
-    return _bound(4 * (3 * N + 3 * B + N), N * (30 + 11 * shells))
+        return _bound(4 * (3 * N + 3 * B + rows + 3 * N + 3 * B),
+                      N * (60 + 17 * shells), FP64_FLOP_PER_S)
+    return _bound(4 * (3 * N + 3 * B + rows), N * (30 + 11 * shells))
 
 
-def _bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def _bound(nbytes, flops, flop_per_s=FP32_FLOP_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
         "operations"
 
@@ -724,64 +745,113 @@ def main():
           "4103))")
     done(t0)
 
-    t0 = phase("K3/K4: wrapped SO(3) density and its backward vs the plain "
-               "density and its autograd on the card")
+    t0 = phase("K3/K4: wrapped SO(3) density, its KL and their backward vs "
+               "the plain versions and their autograd on the card")
+    from lie_vae_tpu_torch.distributions.so3 import so3_wrapped_kl_plain
+    kl_fused = so3_density.so3_wrapped_kl_fused
     d_err = {"fwd": 0.0, "bwd": 0.0}
-    for n, B in ((1, 1), (1, 64), (1, 4103), (4, 16384)):
-        worst_v, worst_g = 0.0, 0.0
-        for k in (0, 1, 10):
-            v, sigma = density_inputs(n, B, seed=10 * k + n)
-            g = torch.randn((n, B), generator=gen).to(dev)
-            res = []
-            for fn, dtype in ((dens, torch.float32),
-                              (so3_wrapped_log_density_plain, torch.float64)):
-                vt = torch.tensor(v, dtype=dtype, device=dev,
-                                  requires_grad=True)
-                st = torch.tensor(sigma, dtype=dtype, device=dev,
-                                  requires_grad=True)
-                out = fn(vt, st, k)
-                res.append(tuple(t.double() for t in (out.detach(),) +
-                                 torch.autograd.grad(out, (vt, st),
-                                                     g.to(dtype))))
-            (o1, dv1, ds1), (o2, dv2, ds2) = res
-            excess = ((o1 - o2).abs()
-                      / (DENSITY_TOL * (1.0 + o2.abs()))).max().item()
-            gx = max(((a - b).abs().amax(-1) / (
-                DENSITY_GRAD_TOL * (1.0 + b.abs().amax(-1)))).max().item()
-                for a, b in ((dv1, dv2), (ds1, ds2)))
-            if not (excess <= 1.0 and gx <= 1.0):
-                raise AssertionError(
-                    f"K3/K4 != plain: n={n} B={B} k={k}: value error "
-                    f"{excess:.3f} of its tolerance, gradient error "
-                    f"{gx:.3f} of its tolerance")
-            d_err["fwd"] = max(d_err["fwd"], (o1 - o2).abs().max().item())
-            d_err["bwd"] = max(d_err["bwd"], (dv1 - dv2).abs().max().item(),
-                               (ds1 - ds2).abs().max().item())
-            worst_v, worst_g = max(worst_v, excess), max(worst_g, gx)
-        print(f"   N={n * B} (n={n}, B={B}), k in (0, 1, 10): worst value "
-              f"error {worst_v:.3f}, worst gradient error {worst_g:.3f} of "
-              "the tolerance")
-    d_timing = {}
-    for N in (64, 4096):
+    n_rep = 0
+
+    def density_case(fn, plain, n, B, k, g_shape, seed):
+        """``fn`` (float32, twice: the same bits) and ``plain`` (float64)
+        on density_inputs with a random cotangent: the value's and the
+        gradients' worst shares of their tolerances, one forward and one
+        backward launch a call."""
+        v, sigma = density_inputs(n, B, seed=seed)
+        g = torch.randn(g_shape, generator=gen).to(dev)
+        res = []
+        for f, dtype in ((fn, torch.float32), (fn, torch.float32),
+                         (plain, torch.float64)):
+            vt = torch.tensor(v, dtype=dtype, device=dev, requires_grad=True)
+            st = torch.tensor(sigma, dtype=dtype, device=dev,
+                              requires_grad=True)
+            before = dens.launches, dens.launches_backward
+            out = f(vt, st, k)
+            res.append((out.detach(),) + torch.autograd.grad(
+                out, (vt, st), g.to(dtype)))
+            if dtype == torch.float32 and (
+                    dens.launches - before[0],
+                    dens.launches_backward - before[1]) != (1, 1):
+                raise AssertionError(f"{fn.__name__}: n={n} B={B} k={k}: "
+                                     "not one launch each of K3 and K4")
+        if not all(torch.equal(p, q) for p, q in zip(res[0], res[1])):
+            raise AssertionError(f"{fn.__name__} differs between two runs: "
+                                 f"n={n} B={B} k={k}")
+        (o1, dv1, ds1), (o2, dv2, ds2) = [[t.double() for t in r]
+                                          for r in res[1:]]
+        excess = ((o1 - o2).abs()
+                  / (DENSITY_TOL * (1.0 + o2.abs()))).max().item()
+        gx = max(((a - b).abs().amax(-1) / (
+            DENSITY_GRAD_TOL * (1.0 + b.abs().amax(-1)))).max().item()
+            for a, b in ((dv1, dv2), (ds1, ds2)))
+        if not (excess <= 1.0 and gx <= 1.0):
+            raise AssertionError(
+                f"{fn.__name__} != plain: n={n} B={B} k={k}: value error "
+                f"{excess:.3f} of its tolerance, gradient error {gx:.3f} of "
+                "its tolerance")
+        d_err["fwd"] = max(d_err["fwd"], (o1 - o2).abs().max().item())
+        d_err["bwd"] = max(d_err["bwd"], (dv1 - dv2).abs().max().item(),
+                           (ds1 - ds2).abs().max().item())
+        return excess, gx
+
+    for what, fn, plain, shapes in (
+            ("log q", dens, so3_wrapped_log_density_plain,
+             ((1, 1), (1, 64), (1, 4103), (4, 16384), (500, 1))),
+            ("KL", kl_fused, so3_wrapped_kl_plain,
+             ((1, 1), (4, 1), (1, 64), (4, 64), (1, 4103), (4, 16384)))):
+        for n, B in shapes:
+            worst_v, worst_g = 0.0, 0.0
+            for k in (0, 1, 10):
+                ex, gx = density_case(fn, plain, n, B, k,
+                                      (n, B) if what == "log q" else (B,),
+                                      seed=10 * k + n)
+                worst_v, worst_g = max(worst_v, ex), max(worst_g, gx)
+                n_rep += 1
+            print(f"   {what}, N={n * B} (n={n}, B={B}), k in (0, 1, 10): "
+                  f"worst value error {worst_v:.3f}, worst gradient error "
+                  f"{worst_g:.3f} of the tolerance; twice the same bits")
+    print(f"   K3 and K4 repeat bit for bit: {n_rep} cases")
+    d_timing, dens_us = {}, {}
+    for N in (64, 4096, 65536):
         v, sigma = density_inputs(1, N, seed=99)
         vf = torch.tensor(v, device=dev).reshape(N, 3)
         st = torch.tensor(sigma, device=dev)
         g = torch.randn((N,), generator=gen).to(dev)
-        f_ms = cuda_ms(lambda: so3_density._launch_fwd(vf, st, 10, 1e-3))
-        b_ms = cuda_ms(lambda: so3_density._launch_bwd(vf, st, g, 10, 1e-3))
+        dens_us[N] = (
+            device_us(lambda: so3_density._launch_kl(vf, st, 10, 1e-3)),
+            device_us(lambda: so3_density._launch_bwd(vf, st, g, 10, 1e-3,
+                                                      True)))
+        if N == 65536:
+            continue
+        f_ms = cuda_ms(lambda: so3_density._launch_kl(vf, st, 10, 1e-3))
+        b_ms = cuda_ms(lambda: so3_density._launch_bwd(vf, st, g, 10, 1e-3,
+                                                       True))
         vr = torch.tensor(v, device=dev, requires_grad=True)
         sr = torch.tensor(sigma, device=dev, requires_grad=True)
-        pf_ms = cuda_ms(lambda: so3_wrapped_log_density_plain(vr, sr, 10))
-        ref = so3_wrapped_log_density_plain(vr, sr, 10)
+        pf_ms = cuda_ms(lambda: so3_wrapped_kl_plain(vr, sr, 10))
+        ref = so3_wrapped_kl_plain(vr, sr, 10)
         pb_ms = cuda_ms(lambda: torch.autograd.grad(
-            ref, (vr, sr), g.view(1, N), retain_graph=True))
+            ref, (vr, sr), g, retain_graph=True))
         fb = density_bound(N, N, 10, backward=False)
         bb = density_bound(N, N, 10, backward=True)
         d_timing[N] = (f_ms, pf_ms, fb, b_ms, pb_ms, bb)
-        print(f"   N=B={N} k=10: forward {f_ms:.4f} ms (plain with grad "
-              f"{pf_ms:.4f}, bound {fb[0]:.6f} {fb[1]}); backward "
-              f"{b_ms:.4f} ms (plain autograd {pb_ms:.4f}, bound "
+        print(f"   KL, N=B={N} k=10: K3 {f_ms:.4f} ms (device "
+              f"{dens_us[N][0]:.2f} us; plain with grad {pf_ms:.4f}, bound "
+              f"{fb[0]:.6f} {fb[1]}); K4 {b_ms:.4f} ms (device "
+              f"{dens_us[N][1]:.2f} us; plain autograd {pb_ms:.4f}, bound "
               f"{bb[0]:.6f} {bb[1]})")
+    print(f"   KL, N=B=65536 k=10: device us K3 {dens_us[65536][0]:.2f}, K4 "
+          f"{dens_us[65536][1]:.2f} (bounds "
+          f"{1e3 * density_bound(65536, 65536, 10, False)[0]:.3f}, "
+          f"{1e3 * density_bound(65536, 65536, 10, True)[0]:.3f} us)")
+    v, sigma = density_inputs(500, 1, seed=98)
+    vf, st = torch.tensor(v, device=dev).reshape(500, 3), torch.tensor(
+        sigma, device=dev)
+    iwll_us = device_us(lambda: so3_density._launch_fwd(vf, st, 10, 1e-3))
+    print(f"   log q per sample, n=500 B=1 (the IW-LL's call) k=10: device "
+          f"{iwll_us:.2f} us (bound "
+          f"{1e3 * density_bound(500, 1, 10, False, per_row=False)[0]:.4f}"
+          " us)")
     done(t0)
 
     t0 = phase("K5/K6: synthesise-then-apply Wigner kernel and its backward "
@@ -1163,11 +1233,12 @@ def main():
              4096),
             ("so3_density_fwd", src_dens,
              "lie_vae_tpu/ops/kernels/so3_density.py:22", d_timing,
-             d_err["fwd"], "density_launches", "N=B=64 k=10", 4096),
+             d_err["fwd"], "density_launches", "KL entry, N=B=64 k=10",
+             4096),
             ("so3_density_bwd", src_dens,
              "lie_vae_tpu/ops/kernels/so3_density.py:57", d_timing,
-             d_err["bwd"], "density_launches_backward", "N=B=64 k=10",
-             4096),
+             d_err["bwd"], "density_launches_backward",
+             "KL cotangent, N=B=64 k=10", 4096),
             ("wigner_block_fwd", src_block,
              "lie_vae_tpu/ops/kernels/wigner_block.py:54", k5_timing,
              k5_err["fwd"], "block_launches", "B=64 L=6 C=10 shared", 4096),
@@ -1194,6 +1265,12 @@ def main():
         if name in block_dev:
             kernels[-1]["device_us"] = block_us[64][block_dev[name]]
             kernels[-1]["device_us_b4096"] = block_us[4096][block_dev[name]]
+        if name.startswith("so3_density"):
+            kernels[-1]["device_us"] = dens_us[64][back]
+            kernels[-1]["device_us_b4096"] = dens_us[4096][back]
+            kernels[-1]["device_us_n65536"] = dens_us[65536][back]
+            if not back:
+                kernels[-1]["device_us_iwll_n500"] = iwll_us
     record = {"kernels": kernels, "build_s": build_s,
               "ptxas": ptxas_all, "pallas_op_device_us": op_us,
               "request_ms": req_ms,

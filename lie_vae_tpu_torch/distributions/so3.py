@@ -7,7 +7,9 @@ algebra Gaussian at u theta_hat (u = v / |v|) and adds the exp-map volume
 term log(theta_hat^2 / (2 - 2 cos theta_hat)), then takes a logsumexp over
 the shells. :func:`so3_wrapped_log_density` runs that plain version on CPU
 tensors and, unless asked for ``impl='xla'``, the CUDA kernel with its
-backward kernel (``ops/kernels/so3_density.py``) on CUDA tensors.
+backward kernel (``ops/kernels/so3_density.py``) on CUDA tensors;
+:func:`so3_wrapped_kl`, the KL against the Haar prior that ``SO3Stats.kl``
+takes, likewise.
 """
 import dataclasses
 import math
@@ -35,7 +37,8 @@ class SO3Stats:
 
     def kl(self):
         """MC estimate E_q[log q - log p], mean over the sample axis, (B,)."""
-        return torch.mean(self.log_posterior() - self.log_prior(), dim=0)
+        return so3_wrapped_kl(self.inner.z, self.inner.sigma, self.k,
+                              impl=self.density_impl)
 
     def log_posterior(self):
         """Wrapped pushforward log-density at the drawn samples, (n, B)."""
@@ -68,6 +71,19 @@ def so3_wrapped_log_density_plain(v, sigma, k=10, clamp=1e-3):
     return torch.logsumexp(log_p + log_vol, dim=-1)
 
 
+def so3_wrapped_kl_plain(v, sigma, k=10, clamp=1e-3):
+    """The plain KL: mean over the n samples of log q(exp(v)) less the Haar
+    log-density, v (n, B, 3), sigma (B, 3) -> (B,)."""
+    return torch.mean(so3_wrapped_log_density_plain(v, sigma, k, clamp)
+                      - LOG_HAAR_UNIFORM, dim=0)
+
+
+def _check_impl(impl):
+    if impl not in ("fused", "pallas", "auto", "xla"):
+        raise ValueError(f"unknown so3 density impl {impl!r} (expected "
+                         "'fused', 'pallas', 'auto' or 'xla')")
+
+
 def so3_wrapped_log_density(v, sigma, k=10, clamp=1e-3, impl="fused"):
     """log q(exp(v)) for the pushforward of N(0, diag(sigma^2)) to SO(3):
     v (n, B, 3), sigma (B, 3) -> (n, B).
@@ -76,14 +92,29 @@ def so3_wrapped_log_density(v, sigma, k=10, clamp=1e-3, impl="fused"):
     backward is the kernel K4, on CUDA tensors; the plain version on CPU
     tensors: ``ops/kernels/so3_density.py`` routes both) | 'xla' (the plain
     version on any device)."""
-    if impl not in ("fused", "pallas", "auto", "xla"):
-        raise ValueError(f"unknown so3 density impl {impl!r} (expected "
-                         "'fused', 'pallas', 'auto' or 'xla')")
+    _check_impl(impl)
     if impl == "xla":
         return so3_wrapped_log_density_plain(v, sigma, k, clamp)
     from lie_vae_tpu_torch.ops.kernels.so3_density import (
         so3_wrapped_log_density_fused)
     return so3_wrapped_log_density_fused(v, sigma, k, clamp)
+
+
+def so3_wrapped_kl(v, sigma, k=10, clamp=1e-3, impl="fused"):
+    """The Monte-Carlo KL of the pushforward against the Haar prior, the
+    mean over the n samples of log q(exp(v)) - LOG_HAAR_UNIFORM:
+    v (n, B, 3), sigma (B, 3) -> (B,).
+
+    impl as :func:`so3_wrapped_log_density`: on CUDA tensors 'fused',
+    'pallas' and 'auto' run one launch of K3 with the mean and the prior
+    folded in (and one of K4 for the gradient); CPU tensors, and 'xla' on
+    any device, the plain KL."""
+    _check_impl(impl)
+    if impl == "xla":
+        return so3_wrapped_kl_plain(v, sigma, k, clamp)
+    from lie_vae_tpu_torch.ops.kernels.so3_density import (
+        so3_wrapped_kl_fused)
+    return so3_wrapped_kl_fused(v, sigma, k, clamp)
 
 
 def sample_so3(mu_lie, sigma, n=1, k=10, eps=None, generator=None,

@@ -103,10 +103,10 @@ def main(argv=None):
                 ("wigner_block_bwd", lambda: wigner_block._launch_backward(
                     angles, item_rep, dout, 6, False, True)))
         for name, fn in wigner + (
-                ("so3_density_fwd", lambda: so3_density._launch_fwd(
+                ("so3_density_kl", lambda: so3_density._launch_kl(
                     v, sigma, 10, 1e-3)),
                 ("so3_density_bwd", lambda: so3_density._launch_bwd(
-                    v, sigma, g, 10, 1e-3))):
+                    v, sigma, g, 10, 1e-3, True))):
             profile_request(f"{name}_B{B}", fn, args.steps, out_dir,
                             unit="launch", watch=_KERNELS)
 
