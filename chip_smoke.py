@@ -1,5 +1,7 @@
-"""Drive the PyTorch port's serving path, its training step and its
-experiment CLI on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving path, its training step (in float32
+and in bench.py's bfloat16 recipe), its experiment CLI (sphere-cube renders,
+the toy experiment, the Gaussian baseline) and a Gaussian-latent session on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -54,21 +56,37 @@ Phases, each timed:
    then held against the same requests served on the CPU, and timed;
 8. renders: 1024 poses of data_poses/spherecube.npz rendered with the
    port's ray-caster (``cli/gen_spherecube.py``) into chiprun_out/;
-9. training, once with ``kernel_impl='fused'`` (K2, K3, K4) and once with
-   ``'pallas'`` (K5, K6, K3, K4): the flagship model as ``bench.py``
-   trains it (sigma clamp pi * 10 / 2; float32, TF32 off) from the same
+9. training, with ``kernel_impl='fused'`` (K2, K3, K4) and with
+   ``'pallas'`` (K5, K6, K3, K4), first in float32 (TF32 off), then in
+   ``bench.py``'s recipe (``models.bench_model``: bfloat16 conv and
+   transpose-conv stacks, a float32 image head): the flagship as
+   ``bench.py`` trains it (sigma clamp pi * 10 / 2) from the converged
    weights, fresh optimizer (lr 1e-3, clip 1e-5), beta 1, batch 64 of the
-   renders: one step on the card against the same step on the CPU (loss,
-   every gradient, parameters and BatchNorm statistics after it), then 20
-   steps with finite losses and one launch per step of each kernel of the
-   path and none of the other's, timed per step;
-10. the CLI: ``cli.main.main`` with the flagship defaults and
-   ``--kernel_impl pallas`` on the renders, two epochs, checkpoint and logs
-   under chiprun_out/: every logged loss finite, K5, K6, K3 and K4 launched
-   and K1, K2 not, the best checkpoint served by
+   renders: one step on the card held against the exact float64 step on
+   the CPU (loss, every gradient, parameters and BatchNorm statistics after
+   it), each within its tolerance plus twice the CPU's own error in the
+   same dtypes; then 20 steps with finite losses and one launch per step of
+   each kernel of the path and none of the other's, timed per step, and 5
+   more under ``torch.profiler`` (device busy time, device events per step,
+   the costliest device items);
+10. the CLI: ``cli.main.main --dataset spherecube`` with the flagship
+   defaults and ``--kernel_impl pallas`` on the renders, two epochs,
+   checkpoint and logs under chiprun_out/: every logged loss finite, K5,
+   K6, K3 and K4 launched and K1, K2 not, the best checkpoint served by
    ``InferenceSession.from_checkpoint`` decoding fixed poses as the model
    it saved, and each test item's IW-LL finite and no lower than the mean
-   of its own log-weights (Jensen's inequality); seconds per epoch.
+   of its own log-weights (Jensen's inequality); seconds per epoch;
+11. the toy experiment, the CLI at its defaults (1000 items generated into
+   chiprun_out/ by K1, L = 6, C = 10, the toy encoder, no deconv head),
+   with ``--kernel_impl fused`` (K1, K2, K3, K4) and then ``pallas`` (K5,
+   K6, K3, K4), two epochs each, checked as the CLI phase;
+12. ``--config normal`` (Gaussian latent, MLP decoder: none of the
+   kernels) on the renders, one epoch, checked as the CLI phase;
+13. a Gaussian latent with the action decoder at the flagship's widths:
+   five steps on the renders (K2 forward and backward each, the angle
+   gradients through the tanh chart), then served at batch 64 (encode,
+   decode, sample, reconstruct, geodesic: one launch of K1 per decode
+   chunk) and held against the same requests served on the CPU.
 
 The last lines are a JSON record of the kernels, the card line, and
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -83,6 +101,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -131,12 +150,22 @@ STATS_TOL = 1e-4
 ARBITER = 2.0
 SIGMA_CLAMP = math.pi * 10 / 2
 TRAIN_STEPS = 20
+# steps of each training configuration under torch.profiler (device busy
+# time and device events per step); traces under build/profile/
+PROFILE_STEPS = 5
+PROFILE_DIR = os.path.join(ROOT, "build", "profile")
 # the CLI phase: poses of data_poses/spherecube.npz rendered by the port,
 # two epochs on them, and the IW-LL of a few test items
 RENDER_POSES = 1024
 DATA_DIR = os.path.join(ROOT, "chiprun_out", "smoke_data", "spherecube")
 CLI_DIR = os.path.join(ROOT, "chiprun_out", "smoke_cli")
 CLI_EPOCHS = 2
+# the toy experiment at the CLI's defaults (1000 items, L = 6, C = 10),
+# generated by the CLI into chiprun_out/
+TOY_PATH = os.path.join(ROOT, "chiprun_out", "smoke_toy", "toy.npz")
+# a Gaussian-latent model with the action decoder, trained a few steps on
+# the renders and then served
+NORMAL_STEPS = 5
 LL_SAMPLES = 20
 LL_ITEMS = 8
 # GPU vs CPU serving, float32 with TF32 off: ten conv layers whose sums run
@@ -379,37 +408,48 @@ def max_rel(got, want):
     return err, err / max(1.0, want.abs().max().item())
 
 
-def step_card_vs_cpu(weights, batch, eps, kernel_impl):
-    """One flagship training step from ``weights`` on the uint8 ``batch``
-    with the noise ``eps`` on the card in float32, and on the CPU in float32
-    and in float64. The card is held against the exact (float64) step: loss,
-    every gradient, the parameters and BatchNorm statistics after it, each
-    within its stated tolerance plus twice the CPU's own float32 error
-    against the same exact step (where float32 loses digits on this input,
-    as at a near-stationary point, that error says by how much). Returns
-    the card's model and optimizer."""
-    from lie_vae_tpu_torch.models import flagship_model
+def train_once(device, dtype, weights, batch, eps, kernel_impl, recipe):
+    """One training step of the flagship as bench.py trains it (sigma
+    clamp pi * 10 / 2, lr 1e-3, clip 1e-5, beta 1) from ``weights`` on the
+    uint8 ``batch`` with the noise ``eps``: in float32 throughout, or with
+    ``recipe`` in bench.py's dtypes (``models.bench_model``: bfloat16
+    stacks, float32 image head), cast to ``dtype``. Returns the model, its
+    optimizer and the step's metrics."""
+    from lie_vae_tpu_torch.models import bench_model, flagship_model
     from lie_vae_tpu_torch.train import make_optimizer, train_step
-    runs = {}
-    for key, device, dtype in (("card", "cuda", torch.float32),
-                               ("cpu", "cpu", torch.float32),
-                               ("exact", "cpu", torch.float64)):
-        model = flagship_model(device, sigma_clamp=SIGMA_CLAMP,
-                               kernel_impl=kernel_impl)
-        model.load_state_dict(weights, strict=True)
-        model.to(dtype)
-        opt = make_optimizer(model.named_parameters(), lr=1e-3,
-                             clip_grads=1e-5)
-        metrics = train_step(model, opt, torch.as_tensor(batch), 1.0,
-                             eps=eps.to(dtype))
-        runs[key] = (model, opt, metrics)
-    (mg, opt_g, met_g), (mc, _, met_c), (me, _, met_e) = (
-        runs["card"], runs["cpu"], runs["exact"])
+    model = (bench_model(device, kernel_impl=kernel_impl) if recipe
+             else flagship_model(device, sigma_clamp=SIGMA_CLAMP,
+                                 kernel_impl=kernel_impl))
+    model.load_state_dict(weights, strict=True)
+    model.to(dtype)
+    opt = make_optimizer(model.named_parameters(), lr=1e-3, clip_grads=1e-5)
+    metrics = train_step(model, opt, torch.as_tensor(batch), 1.0,
+                         eps=eps.to(dtype))
+    return model, opt, metrics
+
+
+def step_card_vs_cpu(weights, batch, eps, kernel_impl, exact, recipe=False):
+    """One flagship training step from ``weights`` on the uint8 ``batch``
+    with the noise ``eps`` on the card, and on the CPU, in float32 (or with
+    ``recipe`` in bench.py's bfloat16 stacks), held against ``exact``
+    (:func:`train_once` in float64 on the CPU, which takes the plain ops
+    whatever ``kernel_impl`` says): loss, every gradient, the parameters and
+    BatchNorm statistics after it, each within its stated tolerance plus
+    twice the CPU's own error against the same exact step (where float32
+    loses digits on this input, as at a near-stationary point, or where
+    bfloat16 rounds, that error says by how much). Returns the card's model
+    and optimizer."""
+    runs = {key: train_once(device, torch.float32, weights, batch, eps,
+                            kernel_impl, recipe)
+            for key, device in (("card", "cuda"), ("cpu", "cpu"))}
+    (mg, opt_g, met_g), (mc, _, met_c) = runs["card"], runs["cpu"]
+    me, _, met_e = exact
+    kind = "bfloat16" if recipe else "float32"
     loss_g, loss_c, loss_e = (float(m["loss"]) for m in (met_g, met_c,
                                                         met_e))
-    print(f"   one step: loss {loss_g:.6f} on the card, {loss_c:.6f} on the "
-          f"CPU, {loss_e:.6f} exact (recon {float(met_e['recon']):.4f}, KL "
-          f"{float(met_e['kl']):.4f})")
+    print(f"   one step ({kind} stacks): loss {loss_g:.6f} on the card, "
+          f"{loss_c:.6f} on the CPU, {loss_e:.6f} exact (recon "
+          f"{float(met_e['recon']):.4f}, KL {float(met_e['kl']):.4f})")
     if not abs(loss_g - loss_e) <= LOSS_TOL * abs(loss_e) \
             + ARBITER * abs(loss_c - loss_e):
         raise AssertionError(f"training loss {loss_g} on the card vs "
@@ -418,7 +458,9 @@ def step_card_vs_cpu(weights, batch, eps, kernel_impl):
     exact_params = dict(me.named_parameters())
     # a conv bias that feeds a BatchNorm has zero gradient in exact
     # arithmetic (the batch mean is subtracted): on both devices it must be
-    # rounding, below BIAS_TOL of its conv weight's largest gradient
+    # rounding, below BIAS_TOL of its conv weight's largest gradient; in
+    # bfloat16 that rounding is bfloat16's, so the card's allowance adds
+    # ARBITER times the CPU's own
     enc = mg.encoder
     pre_bn = {f"encoder.{i}.bias" for i in range(len(enc) - 1)
               if isinstance(enc[i], torch.nn.Conv2d)
@@ -437,25 +479,30 @@ def step_card_vs_cpu(weights, batch, eps, kernel_impl):
 
     # per kind: worst share of the allowance, largest card and CPU errors
     worst = {"grad": [0.0] * 3, "param": [0.0] * 3, "stat": [0.0] * 3}
-    worst_bias = 0.0
+    worst_bias = [0.0, 0.0]
 
-    def note(kind, name, res, what):
+    def note(group, name, res, what):
         if not res[0] <= 1.0:
             raise AssertionError(
                 f"{what} of {name}: card {res[1]:.3e} from the exact step, "
-                f"beyond its tolerance plus {ARBITER} x the CPU's float32 "
+                f"beyond its tolerance plus {ARBITER} x the CPU's {kind} "
                 f"error {res[2]:.3e} ({res[0]:.3f} of the allowance)")
-        worst[kind] = [max(a, b) for a, b in zip(worst[kind], res)]
+        worst[group] = [max(a, b) for a, b in zip(worst[group], res)]
 
     for name, p in mg.named_parameters():
         ref, exact = cpu_params[name], exact_params[name]
         if name in pre_bn:
             w = exact_params[name[:-len("bias")] + "weight"].grad.abs().max()
-            top = max(p.grad.abs().max().item(), ref.grad.abs().max().item())
-            if not top <= BIAS_TOL * w.item():
-                raise AssertionError(f"gradient of {name}: {top:.3e}, not "
-                                     f"rounding against {w.item():.3e}")
-            worst_bias = max(worst_bias, top / w.item())
+            r_card = p.grad.abs().max().item() / w.item()
+            r_cpu = ref.grad.abs().max().item() / w.item()
+            allow = BIAS_TOL + ARBITER * r_cpu if recipe else BIAS_TOL
+            if not max(r_card, 0.0 if recipe else r_cpu) <= allow:
+                raise AssertionError(
+                    f"gradient of {name}: card {r_card:.3e}, CPU "
+                    f"{r_cpu:.3e} of its weight's {w.item():.3e}, not "
+                    f"rounding (allowance {allow:.3e})")
+            worst_bias = [max(worst_bias[0], r_card),
+                          max(worst_bias[1], r_cpu)]
         else:
             scale = exact.grad.abs().max().item()
             note("grad", name, excess(p.grad, ref.grad, exact.grad,
@@ -475,11 +522,13 @@ def step_card_vs_cpu(weights, batch, eps, kernel_impl):
              "running statistic")
     print(f"   against the exact step (gradients and statistics as a share "
           f"of each tensor's max, parameters absolute): "
-          + "; ".join(f"{k}: card {v[1]:.3e}, CPU float32 {v[2]:.3e}, "
+          + "; ".join(f"{k}: card {v[1]:.3e}, CPU {kind} {v[2]:.3e}, "
                       f"worst {v[0]:.3f} of the allowance"
                       for k, v in worst.items())
-          + f"; the biases before BatchNorm at most {worst_bias:.3e} of "
-          f"their weight's gradient (tol {BIAS_TOL})")
+          + f"; the biases before BatchNorm at most {worst_bias[0]:.3e} "
+          f"(card) and {worst_bias[1]:.3e} (CPU) of their weight's gradient "
+          f"(tol {BIAS_TOL}" + (f" + {ARBITER} x the CPU's)" if recipe
+                                else ")"))
     return mg, opt_g
 
 
@@ -498,9 +547,9 @@ def main():
     from lie_vae_tpu_torch.ops.kernels import wigner_block
     from lie_vae_tpu_torch.ops.kernels import wigner_fused
     from lie_vae_tpu_torch.ops.wigner import block_wigner_apply_zjz
-    from lie_vae_tpu_torch.profile_serve import device_us
+    from lie_vae_tpu_torch.profile_serve import device_us, profile_request
     from lie_vae_tpu_torch.serve import InferenceSession
-    from lie_vae_tpu_torch.train import train_step
+    from lie_vae_tpu_torch.train import make_optimizer, train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1071,16 +1120,28 @@ def main():
         return {prefix[id(obj)] + attr: getattr(obj, attr)
                 for obj, attr in counters}
 
+    eps = torch.randn((1, 64, 3), generator=torch.Generator().manual_seed(2))
+    exact = train_once("cpu", torch.float64, weights, batch, eps, "fused",
+                       recipe=False)
+    x_dev = torch.as_tensor(batch, device=dev)
+    os.makedirs(PROFILE_DIR, exist_ok=True)
     train_runs = {}
-    for impl, want in (("fused", [0, 1, 1, 1, 1, 0, 0]),
-                       ("pallas", [0, 0, 0, 1, 1, 1, 1])):
-        t0 = phase(f"training, kernel_impl={impl!r}: flagship as bench.py "
-                   "trains it, batch 64 of the renders, beta 1")
-        eps = torch.randn((1, 64, 3),
-                          generator=torch.Generator().manual_seed(2))
+    for recipe, impl, want in (
+            (False, "fused", [0, 1, 1, 1, 1, 0, 0]),
+            (False, "pallas", [0, 0, 0, 1, 1, 1, 1]),
+            (True, "fused", [0, 1, 1, 1, 1, 0, 0]),
+            (True, "pallas", [0, 0, 0, 1, 1, 1, 1])):
+        key = ("bf16_" if recipe else "") + impl
+        t0 = phase(
+            f"training, kernel_impl={impl!r}: "
+            + ("bench.py's recipe (bfloat16 stacks, float32 image head)"
+               if recipe else "the flagship in float32, as bench.py "
+               "trains it but for the dtypes")
+            + ", sigma clamp pi * 10 / 2, batch 64 of the renders, beta 1")
         for obj, attr in counters:
             setattr(obj, attr, 0)
-        mg, opt_g = step_card_vs_cpu(weights, batch, eps, impl)
+        mg, opt_g = step_card_vs_cpu(weights, batch, eps, impl, exact,
+                                     recipe=recipe)
         delta = [getattr(obj, attr) for obj, attr in counters]
         if delta != want:
             raise AssertionError(
@@ -1088,7 +1149,6 @@ def main():
                 f"K3, K4, K5, K6): {delta}, expected {want}")
         for obj, attr in counters:
             setattr(obj, attr, 0)
-        x_dev = torch.as_tensor(batch, device=dev)
         noise = torch.Generator().manual_seed(3)
         losses, step_ms = [], []
         for _ in range(TRAIN_STEPS):
@@ -1104,12 +1164,18 @@ def main():
                     f"launches in one step (K1, K2 forward, K2 backward, "
                     f"K3, K4, K5, K6): {delta}, expected {want}")
             losses.append(metrics["loss"])
+        launched = counts()
         losses = torch.stack(losses).cpu()
         if not torch.isfinite(losses).all():
             raise AssertionError(f"non-finite training loss: "
                                  f"{losses.tolist()}")
         train_ms = statistics.median(step_ms[2:])
-        train_runs[impl] = (train_ms, step_ms[:2], losses, counts())
+        _, prof = profile_request(
+            f"train_step_{key}", lambda: train_step(
+                mg, opt_g, x_dev, 1.0, generator=noise),
+            PROFILE_STEPS, PROFILE_DIR, unit="step of 64",
+            watch=("wigner", "so3_density"))
+        train_runs[key] = (train_ms, step_ms[:2], losses, launched, prof)
         print(f"   {TRAIN_STEPS} steps: losses {losses[0]:.4f} .. "
               f"{losses[-1]:.4f}, all finite; launches per step (K1, K2 "
               f"forward, K2 backward, K3, K4, K5, K6) {want}")
@@ -1117,92 +1183,239 @@ def main():
               f"3-{TRAIN_STEPS}): {train_ms:.3f}; first two "
               f"{step_ms[0]:.3f}, {step_ms[1]:.3f}")
         done(t0)
-    print(f"   ms per step, kernel_impl 'pallas' {train_runs['pallas'][0]:.3f}"
-          f" vs 'fused' {train_runs['fused'][0]:.3f}")
+    print("   ms per step (host clock, median of steps 3-20; device busy ms "
+          "and device events per step under the profiler): " + "; ".join(
+              f"{k} {v[0]:.3f} ({v[4]['busy_ms']:.3f}, {v[4]['events']:.0f})"
+              for k, v in train_runs.items()))
 
-    t0 = phase("the CLI on the card: python -m lie_vae_tpu_torch.cli.main "
-               "--kernel_impl pallas, flagship defaults, the renders")
     from lie_vae_tpu_torch.cli import main as cli_main
+    from lie_vae_tpu_torch.data import ToyDataset
     from lie_vae_tpu_torch.train import UnsupervisedExperiment
     from lie_vae_tpu_torch.train.checkpoint import load_checkpoint
-    shutil.rmtree(CLI_DIR, ignore_errors=True)
-    epoch_s = []
-    train_epoch = UnsupervisedExperiment.train
+    fused_keys = ("launches", "launches_residuals", "launches_backward")
+    block_keys = ("block_launches", "block_launches_backward")
+    dens_keys = ("density_launches", "density_launches_backward")
 
-    def timed_epoch(self, epoch):
-        te = time.perf_counter()
-        train_epoch(self, epoch)
-        torch.cuda.synchronize()
-        epoch_s.append(time.perf_counter() - te)
+    def cli_run(argv, out_dir, positive, zero, decode_key):
+        """``cli.main.main(argv)`` with its checkpoint and logs in
+        ``out_dir`` and the IW-LL of LL_ITEMS test items with LL_SAMPLES
+        samples: every epoch timed, the kernels of ``positive`` launched and
+        those of ``zero`` not (counts set to 0 just before the run), every
+        logged loss finite, the best checkpoint served by
+        ``InferenceSession.from_checkpoint`` decoding 16 fixed poses as the
+        model it saved (one chunk: one launch of ``decode_key``'s kernel
+        and none of the other Wigner kernels'), each IW-LL item finite and
+        no lower than the mean of its own log-weights (Jensen's
+        inequality). Returns the experiment, the seconds per epoch and the
+        launch counts."""
+        shutil.rmtree(out_dir, ignore_errors=True)
+        argv = argv + [
+            "--save_dir", out_dir, "--log_dir", os.path.join(out_dir, "logs"),
+            "--ll_samples", str(LL_SAMPLES), "--ll_max_items", str(LL_ITEMS)]
+        epoch_s = []
+        train_epoch = UnsupervisedExperiment.train
 
-    UnsupervisedExperiment.train = timed_epoch
-    for obj, attr in counters:
-        setattr(obj, attr, 0)
-    try:
-        experiment = cli_main.main([
-            "--kernel_impl", "pallas", "--data_dir", DATA_DIR,
-            "--epochs", str(CLI_EPOCHS), "--save_dir", CLI_DIR,
-            "--log_dir", os.path.join(CLI_DIR, "logs"),
-            "--ll_samples", str(LL_SAMPLES), "--ll_max_items",
-            str(LL_ITEMS)])
-    finally:
-        UnsupervisedExperiment.train = train_epoch
-    cli_launches = counts()
-    print(f"   launches in the CLI run: {cli_launches}")
-    if min(block.launches, block.launches_backward, dens.launches,
-           dens.launches_backward) == 0 or max(
-            fused.launches, fused.launches_residuals,
-            fused.launches_backward) != 0:
-        raise AssertionError("the CLI run with --kernel_impl pallas did not "
-                             "go through K5, K6, K3 and K4 alone")
-    with open(os.path.join(CLI_DIR, "logs", "metrics.jsonl")) as f:
-        logged = [json.loads(line) for line in f]
-    losses = [r["value"] for r in logged if r["tag"].endswith("_loss")]
-    if not losses or not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"CLI losses: {losses}")
-    print(f"   {len(losses)} logged losses, all finite: "
-          + ", ".join(f"{r['tag']} {r['value']:.3f} (it {r['step']})"
-                      for r in logged if r["tag"].endswith("_loss")))
-    print("   seconds per epoch: " + ", ".join(f"{t:.2f}" for t in epoch_s))
-    ckpt_path = os.path.join(CLI_DIR, cli_main.CHECKPOINT)
-    ckpt = load_checkpoint(ckpt_path)
-    final_step = experiment.optimizer.count
-    ref_model = experiment.model
-    if ckpt["step"] != final_step:
-        ref_model = flagship_model(kernel_impl="pallas")
-        ref_model.load_state_dict(ckpt["model"], strict=True)
-    ref_model.eval()
-    csess = InferenceSession.from_checkpoint(
-        ckpt_path, flagship_model(kernel_impl="pallas"), batch_size=64)
-    fixed = random_group_matrices(
-        16, torch.Generator().manual_seed(4), device="cpu").numpy()
-    with torch.inference_mode():
-        want_img = ref_model.decode(
-            torch.as_tensor(fixed, device=dev)[None])[0]
-    before = (block.launches, fused.launches)
-    got_img = csess.decode(fixed)
-    if (block.launches - before[0], fused.launches - before[1]) != (1, 0):
-        raise AssertionError("a decode chunk of the served checkpoint did "
-                             "not launch K5 once and K1 never")
-    d_ckpt = np.abs(got_img - want_img.cpu().numpy()).max()
-    source = "experiment" if ref_model is experiment.model else "checkpoint"
-    print(f"   best checkpoint: step {ckpt['step']} of {final_step}; "
-          f"InferenceSession.from_checkpoint decodes 16 fixed poses (one "
-          f"chunk, one launch of K5) within {d_ckpt:.3e} of the {source}'s "
-          "model")
-    if not d_ckpt <= 1e-5:
-        raise AssertionError("the served checkpoint decodes otherwise than "
-                             "the experiment's model")
+        def timed_epoch(self, epoch):
+            te = time.perf_counter()
+            train_epoch(self, epoch)
+            torch.cuda.synchronize()
+            epoch_s.append(time.perf_counter() - te)
+
+        UnsupervisedExperiment.train = timed_epoch
+        for obj, attr in counters:
+            setattr(obj, attr, 0)
+        try:
+            experiment = cli_main.main(argv)
+        finally:
+            UnsupervisedExperiment.train = train_epoch
+        launched = counts()
+        print(f"   launches in the run: {launched}")
+        bad = [k for k in positive if not launched[k]] + [
+            k for k in zero if launched[k]]
+        if bad:
+            raise AssertionError(f"the run launched {launched}: expected "
+                                 f"{positive} and not {zero}")
+        with open(os.path.join(out_dir, "logs", "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        losses = [r["value"] for r in logged if r["tag"].endswith("_loss")]
+        if not losses or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"CLI losses: {losses}")
+        print(f"   {len(losses)} logged losses, all finite: "
+              + ", ".join(f"{r['tag']} {r['value']:.3f} (it {r['step']})"
+                          for r in logged if r["tag"].endswith("_loss")))
+        print("   seconds per epoch: "
+              + ", ".join(f"{t:.2f}" for t in epoch_s))
+        args = cli_main.parse_args(argv)
+
+        def build():
+            return cli_main.build_model(
+                args, types.SimpleNamespace(rgb=experiment.model.rgb), None)
+
+        ckpt_path = os.path.join(out_dir, cli_main.CHECKPOINT)
+        ckpt = load_checkpoint(ckpt_path)
+        final_step = experiment.optimizer.count
+        ref_model = experiment.model
+        if ckpt["step"] != final_step:
+            ref_model = build()
+            ref_model.load_state_dict(ckpt["model"], strict=True)
+        ref_model.eval()
+        csess = InferenceSession.from_checkpoint(ckpt_path, build(),
+                                                 batch_size=64)
+        pose_gen = torch.Generator().manual_seed(4)
+        fixed = (random_group_matrices(16, pose_gen, device="cpu")
+                 if args.latent_mode == "so3"
+                 else torch.randn((16, args.normal_dims),
+                                  generator=pose_gen)).numpy()
+        with torch.inference_mode():
+            want_out = ref_model.decode(
+                torch.as_tensor(fixed, device=dev)[None])[0]
+        before = counts()
+        got_out = csess.decode(fixed)
+        after = counts()
+        wigner = {k: after[k] - before[k] for k in ("launches",
+                                                    "block_launches")}
+        if decode_key is not None and (wigner.pop(decode_key) != 1
+                                       or any(wigner.values())):
+            raise AssertionError(f"a decode chunk of the served checkpoint "
+                                 f"launched {wigner}, expected one launch "
+                                 f"of {decode_key}")
+        d_ckpt = np.abs(got_out - want_out.cpu().numpy()).max()
+        source = ("experiment" if ref_model is experiment.model
+                  else "checkpoint")
+        print(f"   best checkpoint: step {ckpt['step']} of {final_step}; "
+              f"InferenceSession.from_checkpoint decodes 16 fixed poses (one "
+              f"chunk) within {d_ckpt:.3e} of the {source}'s model")
+        if not d_ckpt <= 1e-5:
+            raise AssertionError("the served checkpoint decodes otherwise "
+                                 "than the experiment's model")
+        ll = experiment.last_ll
+        if ll is None or len(ll["items"]) != LL_ITEMS:
+            raise AssertionError(f"IW-LL items: {ll}")
+        gap = ll["items"] - ll["mean_log_weights"]
+        if not (np.isfinite(ll["items"]).all() and (gap >= 0).all()):
+            raise AssertionError(f"IW-LL {ll['items']} against the mean "
+                                 f"log-weights {ll['mean_log_weights']}")
+        print(f"   IW-LL over {LL_ITEMS} items, n={LL_SAMPLES}: mean "
+              f"{ll['items'].mean():.3f}, each finite and above the mean of "
+              f"its own log-weights by {gap.min():.3f} .. {gap.max():.3f}")
+        return experiment, epoch_s, launched
+
+    t0 = phase("the CLI on the card: python -m lie_vae_tpu_torch.cli.main "
+               "--dataset spherecube --kernel_impl pallas, flagship defaults, "
+               "the renders")
+    experiment, epoch_s, cli_launches = cli_run(
+        ["--dataset", "spherecube", "--kernel_impl", "pallas", "--data_dir",
+         DATA_DIR, "--epochs", str(CLI_EPOCHS)], CLI_DIR,
+        block_keys + dens_keys, fused_keys, "block_launches")
     ll = experiment.last_ll
-    if ll is None or len(ll["items"]) != LL_ITEMS:
-        raise AssertionError(f"IW-LL items: {ll}")
-    gap = ll["items"] - ll["mean_log_weights"]
-    if not (np.isfinite(ll["items"]).all() and (gap >= 0).all()):
-        raise AssertionError(f"IW-LL {ll['items']} against the mean "
-                             f"log-weights {ll['mean_log_weights']}")
-    print(f"   IW-LL over {LL_ITEMS} items, n={LL_SAMPLES}: mean "
-          f"{ll['items'].mean():.3f}, each finite and above the mean of its "
-          f"own log-weights by {gap.min():.3f} .. {gap.max():.3f}")
+    done(t0)
+
+    # the toy set is generated by the CLI's first run (K1 rotating the
+    # spectrum); count and time it there
+    toy_gen = {}
+    from_poses = ToyDataset.from_poses
+
+    def counted_from_poses(*a, **k):
+        before, tg = fused.launches, time.perf_counter()
+        out = from_poses(*a, **k)
+        torch.cuda.synchronize()
+        toy_gen.update(k1=fused.launches - before,
+                       s=time.perf_counter() - tg)
+        return out
+
+    shutil.rmtree(os.path.dirname(TOY_PATH), ignore_errors=True)
+    toy_runs = {}
+    ToyDataset.from_poses = counted_from_poses
+    try:
+        for impl, positive, zero, key in (
+                ("fused", fused_keys + dens_keys, block_keys, "launches"),
+                ("pallas", block_keys + dens_keys, fused_keys,
+                 "block_launches")):
+            t0 = phase(f"the toy experiment: python -m "
+                       f"lie_vae_tpu_torch.cli.main --kernel_impl {impl} at "
+                       f"the CLI's defaults (toy dataset, L = 6, C = 10)")
+            exp_t, toy_s, toy_l = cli_run(
+                ["--kernel_impl", impl, "--toy_path", TOY_PATH, "--epochs",
+                 str(CLI_EPOCHS)], os.path.join(CLI_DIR, f"toy_{impl}"),
+                positive, zero, key)
+            toy_runs[impl] = (toy_s, float(exp_t.last_ll["items"].mean()),
+                              toy_l)
+            done(t0)
+    finally:
+        ToyDataset.from_poses = from_poses
+    toy_len = len(ToyDataset(path=TOY_PATH))
+    print(f"   the toy set: {toy_len} items generated in {toy_gen['s']:.2f} "
+          f"s with {toy_gen['k1']} launches of K1")
+    if toy_len != 1000 or toy_gen.get("k1", 0) < 1:
+        raise AssertionError(f"the toy set: {toy_len} items, {toy_gen}")
+
+    t0 = phase("--config normal (Gaussian latent, MLP decoder) on the "
+               "renders, one epoch")
+    _, normal_cli_s, normal_launches = cli_run(
+        ["--config", "normal", "--dataset", "spherecube", "--data_dir",
+         DATA_DIR, "--epochs", "1"], os.path.join(CLI_DIR, "normal"), (),
+        fused_keys + dens_keys + block_keys, None)
+    done(t0)
+
+    t0 = phase(f"a Gaussian latent with the action decoder: {NORMAL_STEPS} "
+               "steps on the renders, then served at batch 64 on the card "
+               "and on the CPU")
+    from lie_vae_tpu_torch.models import LieVAE
+    normal_cfg = dict(latent_mode="normal", decoder_mode="action",
+                      encode_mode="conv", deconv_mode="deconv", degrees=6,
+                      rep_copies=10, conv_hidden=50, deconv_hidden=200,
+                      rgb=True, kernel_impl="fused")
+    torch.manual_seed(5)
+    nmodel = LieVAE(**normal_cfg)
+    nopt = make_optimizer(nmodel.named_parameters(), lr=1e-3,
+                          clip_grads=1e-5)
+    noise = torch.Generator().manual_seed(6)
+    want = [0, 1, 1, 0, 0, 0, 0]
+    for _ in range(NORMAL_STEPS):
+        before = [getattr(obj, attr) for obj, attr in counters]
+        metrics = train_step(nmodel, nopt, x_dev, 1.0, generator=noise)
+        delta = [getattr(obj, attr) - b
+                 for (obj, attr), b in zip(counters, before)]
+        if delta != want or not torch.isfinite(metrics["loss"]):
+            raise AssertionError(f"a normal/action step: launches {delta} "
+                                 f"(expected {want}), loss "
+                                 f"{float(metrics['loss'])}")
+    print(f"   {NORMAL_STEPS} steps, loss {float(metrics['loss']):.4f}; "
+          f"launches per step (K1, K2 forward, K2 backward, K3, K4, K5, "
+          f"K6) {want}")
+    state = {k: v.detach().cpu() for k, v in nmodel.state_dict().items()}
+    nsess = InferenceSession(LieVAE(**normal_cfg), state, batch_size=64)
+    ncpu = InferenceSession(LieVAE(**dict(normal_cfg, device="cpu")), state,
+                            batch_size=64, device="cpu")
+    k1 = fused.launches
+    n_enc = nsess.encode(batch)
+    n_dec = nsess.decode(n_enc["pose"])
+    n_smp = nsess.sample(64, seed=7)
+    n_rec = nsess.reconstruct(batch)
+    n_geo = nsess.geodesic(n_enc["pose"][0], n_enc["pose"][1], steps=16)
+    n_k1 = fused.launches - k1
+    if n_k1 != 4:
+        raise AssertionError(f"{n_k1} launches of K1 for four decode "
+                             "chunks")
+    check_images(n_dec, (64, 64, 64, 3), "decode")
+    check_images(n_geo, (16, 64, 64, 3), "geodesic")
+    if n_enc["pose"].shape != (64, 3) or n_enc["sigma"].shape != (64, 3):
+        raise AssertionError(f"encode {n_enc['pose'].shape}")
+    c_enc = ncpu.encode(batch)
+    d_img_n = max(np.abs(a - b).max() for a, b in (
+        (n_dec, ncpu.decode(n_enc["pose"])), (n_smp, ncpu.sample(64, seed=7)),
+        (n_rec, ncpu.reconstruct(batch)),
+        (n_geo, ncpu.geodesic(n_enc["pose"][0], n_enc["pose"][1],
+                              steps=16))))
+    d_pose_n = max(np.abs(n_enc[k] - c_enc[k]).max()
+                   for k in ("pose", "sigma", "sample"))
+    print(f"   encode/decode/sample/reconstruct/geodesic at batch 64: "
+          f"{n_k1} launches of K1 (one per decode chunk); card vs CPU: max "
+          f"|output diff| {d_img_n:.3e} (tol {IMAGE_TOL}), max |pose/sigma "
+          f"diff| {d_pose_n:.3e} (tol {POSE_TOL})")
+    if not (d_img_n <= IMAGE_TOL and d_pose_n <= POSE_TOL):
+        raise AssertionError("the normal/action session on the card "
+                             "disagrees with the CPU's")
     done(t0)
 
     k64, p64, b64, by64, us64 = timing[64]
@@ -1271,17 +1484,39 @@ def main():
             kernels[-1]["device_us_n65536"] = dens_us[65536][back]
             if not back:
                 kernels[-1]["device_us_iwll_n500"] = iwll_us
+    # each kernel's launches on every path this script drives, counts set
+    # to 0 just before the path and read just after
+    paths = {f"train_{k}": v[3] for k, v in train_runs.items()}
+    paths["cli_spherecube_pallas"] = cli_launches
+    paths.update({f"toy_cli_{k}": v[2] for k, v in toy_runs.items()})
+    paths["normal_cli"] = normal_launches
+    for entry in kernels:
+        key = {"wigner_chain_fwd": "launches",
+               "wigner_chain_fwd_res": "launches_residuals",
+               "wigner_chain_bwd": "launches_backward",
+               "so3_density_fwd": "density_launches",
+               "so3_density_bwd": "density_launches_backward",
+               "wigner_block_fwd": "block_launches",
+               "wigner_block_bwd": "block_launches_backward"}[entry["name"]]
+        entry["launches_by_path"] = {p: c[key] for p, c in paths.items()}
+        entry["launches_by_path"]["toy_generate"] = (
+            toy_gen["k1"] if key == "launches" else 0)
     record = {"kernels": kernels, "build_s": build_s,
               "ptxas": ptxas_all, "pallas_op_device_us": op_us,
               "request_ms": req_ms,
               "render_s": render_s,
-              "train_step_ms": train_runs["fused"][0],
-              "train_step_ms_pallas": train_runs["pallas"][0],
-              "train_step_ms_first": train_runs["fused"][1],
-              "train_loss": [float(train_runs["fused"][2][0]),
-                             float(train_runs["fused"][2][-1])],
+              "train_step_ms": {k: v[0] for k, v in train_runs.items()},
+              "train_step_ms_first": {k: v[1] for k, v in train_runs.items()},
+              "train_step_profiled": {k: v[4] for k, v in train_runs.items()},
+              "train_loss": {k: [float(v[2][0]), float(v[2][-1])]
+                             for k, v in train_runs.items()},
               "cli_epoch_s": epoch_s,
               "cli_ll": float(ll["items"].mean()),
+              "toy_generate_s": toy_gen["s"],
+              "toy_epoch_s": {k: v[0] for k, v in toy_runs.items()},
+              "toy_ll": {k: v[1] for k, v in toy_runs.items()},
+              "normal_cli_epoch_s": normal_cli_s,
+              "normal_session_max_diff": [float(d_img_n), float(d_pose_n)],
               "total_s": time.perf_counter() - t_start}
     print(json.dumps(record))
     print(card)

@@ -7,10 +7,15 @@ with the command line still overriding, the dataset split, the epoch loop
 with best-checkpoint saving and early stop (main.py:117-131), and the final
 importance-sampled LL (main.py:134-143), appended to ``ll.txt``.
 
-The defaults train the flagship: SO(3) latent with the S2xS2 mean, L = 6,
-10 copies, deconv width 200, conv width 50, BatchNorm, on RGB sphere-cube
-renders (``--dataset spherecube --data_dir DIR``, rendered by
-``python -m lie_vae_tpu_torch.cli.gen_spherecube``). Port flags:
+The defaults are the JAX CLI's: the toy experiment (``--dataset toy``:
+1000 Haar poses of one random spectrum at L = 6 with 10 copies, generated
+into ``--toy_path`` when the file is missing, the Wigner chain kernel
+rotating it on the card; the toy encoder, the SO(3) latent with the S2xS2
+mean, the action decoder without a deconv head). ``--dataset spherecube
+--data_dir DIR`` trains the flagship shape (conv width 50, deconv width
+200, BatchNorm) on RGB sphere-cube renders (rendered by
+``python -m lie_vae_tpu_torch.cli.gen_spherecube``). Every model mode and
+compute dtype of the JAX CLI is passed on to ``LieVAE``. Port flags:
 ``--device`` (default ``cuda``); ``--kernel_impl`` defaults to ``fused``
 (the Wigner chain kernels and the density kernels on the card; ``pallas``
 takes the synthesise-then-apply Wigner kernels instead; ``xla`` the plain
@@ -19,10 +24,9 @@ ops). ``--profile_dir`` writes a ``torch.profiler`` trace. The checkpoint is
 ``serve.InferenceSession.from_checkpoint`` serves.
 
 Modes that are not ported raise ``NotImplementedError`` naming their
-ROADMAP.md item: the toy dataset and the model modes of ``normal.yaml``
-(Queue A, A4), sc-pairs and the regularizers of ``reg.yaml``,
-``contreg.yaml`` and ``scpairs.yaml`` (A6), per-stack dtypes (A4a), the
-mesh flags (A9).
+ROADMAP.md item: the vMF latents (Queue A, A5), sc-pairs and the
+regularizers of ``reg.yaml``, ``contreg.yaml`` and ``scpairs.yaml`` (A6),
+the mesh flags (A9).
 """
 import argparse
 import math
@@ -30,7 +34,7 @@ import os
 
 import torch
 
-from lie_vae_tpu_torch.data import SphereCubeDataset, random_split
+from lie_vae_tpu_torch.data import SphereCubeDataset, ToyDataset, random_split
 from lie_vae_tpu_torch.models import LieVAE
 from lie_vae_tpu_torch.train import (
     LinearSchedule, MetricWriter, UnsupervisedExperiment, get_beta_schedule)
@@ -47,39 +51,45 @@ def _not_ported(what, item):
 def check_ported(args):
     """Raise ``NotImplementedError`` naming the ROADMAP.md item of the
     first mode in ``args`` that the port does not run."""
+    if args.latent_mode in ("vmf", "vmfq"):
+        _not_ported(f"--latent_mode {args.latent_mode}", "A5")
     if args.dataset == "sc-pairs":
         _not_ported("--dataset sc-pairs", "A6")
-    if args.dataset == "toy":
-        _not_ported("--dataset toy", "A4")
     if args.equivariance is not None or args.encoder_continuity is not None:
         _not_ported("the equivariance and encoder-continuity losses", "A6")
-    if args.latent_mode != "so3" or args.decoder_mode != "action" \
-            or args.mean_mode == "s2s1":
-        _not_ported(f"latent_mode={args.latent_mode!r}, decoder_mode="
-                    f"{args.decoder_mode!r}, mean_mode={args.mean_mode!r}",
-                    "A4")
-    for flag in ("deterministic", "fixed_spectrum"):
-        if getattr(args, flag):
-            _not_ported(f"--{flag}", "A4")
-    if args.fixed_sigma is not None:
-        _not_ported("--fixed_sigma", "A4")
-    if args.compute_dtype is not None or any(
-            getattr(args, f) != "unset" for f in
-            ("encoder_dtype", "decoder_dtype", "deconv_head_dtype")):
-        _not_ported("per-stack compute dtypes", "A4a")
     if args.mesh_data > 1 or args.mesh_model > 1:
         _not_ported("--mesh_data / --mesh_model", "A9")
 
 
 def build_dataset(args):
-    if args.dataset != "spherecube":
+    """The dataset, the CLI's batch size (64) and, with
+    ``--fixed_spectrum``, the toy spectrum the decoder keeps fixed."""
+    item_rep = None
+    if args.dataset == "spherecube":
+        dataset = SphereCubeDataset(subsample=args.subsample,
+                                    **({"directory": args.data_dir}
+                                       if args.data_dir else {}))
+    elif args.dataset == "toy":
+        if not os.path.exists(args.toy_path):
+            print(f"Generating toy dataset at {args.toy_path} ...")
+            ToyDataset.generate(n=1000, degrees=args.degrees,
+                                rep_copies=args.rep_copies,
+                                device=args.device).save(args.toy_path)
+        dataset = ToyDataset(path=args.toy_path)
+        expected = ((args.degrees + 1) ** 2, args.rep_copies)
+        if dataset.harmonics.shape != expected:
+            raise ValueError(
+                f"{args.toy_path} was generated with spectrum shape "
+                f"{dataset.harmonics.shape}, but --degrees/--rep_copies "
+                f"request {expected}; regenerate it or pass a different "
+                f"--toy_path")
+        if args.fixed_spectrum:
+            item_rep = dataset.harmonics
+    else:
         raise ValueError("Wrong dataset")
-    dataset = SphereCubeDataset(subsample=args.subsample,
-                                **({"directory": args.data_dir}
-                                   if args.data_dir else {}))
     if len(dataset) == 0:
         raise RuntimeError("Dataset empty")
-    return dataset, 64
+    return dataset, 64, item_rep
 
 
 def sigma_clamp_value(args):
@@ -93,20 +103,32 @@ def sigma_clamp_value(args):
     return float(raw)
 
 
-def build_model(args, dataset):
+def build_model(args, dataset, item_rep):
+    toy = args.dataset == "toy"
     return LieVAE(
         latent_mode=args.latent_mode,
         mean_mode=args.mean_mode,
         decoder_mode=args.decoder_mode,
-        encode_mode="conv",
-        deconv_mode=args.deconv_mode,
+        encode_mode="toy" if toy else "conv",
+        deconv_mode="toy" if toy else args.deconv_mode,
         rep_copies=args.rep_copies,
         degrees=args.degrees,
         deconv_hidden=args.deconv_hidden,
         conv_hidden=args.conv_hidden,
         batch_norm=bool(args.batch_norm),
         rgb=dataset.rgb,
+        normal_dims=args.normal_dims,
+        deterministic=args.deterministic,
+        fixed_item_rep=item_rep,
         wigner_transpose=args.wigner_transpose,
+        mlp_layers=args.mlp_layers,
+        mlp_hidden=args.mlp_hidden,
+        mlp_activation=args.mlp_activation,
+        fixed_sigma=args.fixed_sigma,
+        compute_dtype=args.compute_dtype,
+        encoder_dtype=args.encoder_dtype,
+        decoder_dtype=args.decoder_dtype,
+        deconv_head_dtype=args.deconv_head_dtype,
         sigma_clamp=sigma_clamp_value(args),
         density_k=args.density_k,
         kernel_impl=args.kernel_impl,
@@ -126,8 +148,8 @@ def main(argv=None):
                          "--device cpu to run on the CPU)")
     torch.manual_seed(args.seed)
 
-    dataset, batch_size = build_dataset(args)
-    model = build_model(args, dataset)
+    dataset, batch_size, item_rep = build_dataset(args)
+    model = build_model(args, dataset, item_rep)
 
     num_valid = min(25000, int(0.2 * len(dataset)))
     num_test = min(25000, int(0.2 * len(dataset)))
@@ -212,14 +234,14 @@ def parse_args(argv=None):
     # the JAX CLI's flag surface (same names and defaults, reference
     # main.py:146-210), but --device, and --kernel_impl's default
     parser = argparse.ArgumentParser("VAE experiment")
-    parser.add_argument("--dataset", default="spherecube",
-                        help="[spherecube] (toy, sc-pairs: not ported)")
+    parser.add_argument("--dataset", default="toy",
+                        help="[toy, spherecube] (sc-pairs: not ported)")
     parser.add_argument("--decoder_mode", default="action",
-                        help="[action] (mlp: not ported)")
+                        help="[action, mlp]")
     parser.add_argument("--latent_mode", default="so3",
-                        help="[so3] (normal, vmf, vmfq: not ported)")
+                        help="[so3, normal] (vmf, vmfq: not ported)")
     parser.add_argument("--mean_mode", default="s2s2",
-                        help="For SO(3). Choose [q, alg, s2s2]")
+                        help="For SO(3). Choose [q, alg, s2s2, s2s1]")
     parser.add_argument("--deconv_mode", default="deconv")
     parser.add_argument("--batch_norm", type=int, default=1)
     parser.add_argument("--beta", type=float, default=1.0)
@@ -281,10 +303,15 @@ def parse_args(argv=None):
     parser.add_argument("--device_data", action="store_true",
                         help="keep the uint8 dataset on the device and "
                              "gather batches there")
-    parser.add_argument("--compute_dtype", default=None)
-    parser.add_argument("--encoder_dtype", default="unset")
-    parser.add_argument("--decoder_dtype", default="unset")
-    parser.add_argument("--deconv_head_dtype", default="unset")
+    parser.add_argument("--compute_dtype", default=None,
+                        help="conv/MLP compute dtype, e.g. bfloat16 "
+                             "(parameters and Lie math stay float32)")
+    parser.add_argument("--encoder_dtype", default="unset",
+                        help="override compute_dtype for the encoder stack")
+    parser.add_argument("--decoder_dtype", default="unset",
+                        help="override compute_dtype for the decoder stack")
+    parser.add_argument("--deconv_head_dtype", default="unset",
+                        help="override the dtype of the image head alone")
     parser.add_argument("--kernel_impl", default="fused",
                         choices=["fused", "pallas", "auto", "xla"],
                         help="Lie-group ops: 'fused' (Wigner chain kernels "

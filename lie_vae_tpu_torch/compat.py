@@ -15,6 +15,9 @@ way:
 - flax ``ConvTranspose`` kernel (kh, kw, I, O) -> ``ConvTranspose2d``
   weight (I, O, kh, kw), spatially flipped
 - BatchNorm scale / bias / mean / var        -> weight / bias / running stats
+- a flax ``MLP``'s ``Dense_i``              -> ``Linear`` at Sequential
+  index 2 i (the toy encoder at ``encoder.1``, the MLP decoder at
+  ``decoder.mlp``)
 """
 import numpy as np
 import torch
@@ -37,11 +40,27 @@ def _deconv(a):
         np.transpose(a, (2, 3, 0, 1))[:, :, ::-1, ::-1])
 
 
+def _mlp_entries(port_prefix, jax_prefix, mlp):
+    """An :class:`~lie_vae_tpu_torch.models.MLP`'s Linears (at Sequential
+    indices 0, 2, ...) -> the flax MLP's ``Dense_i``."""
+    m = {}
+    linears = [i for i, mod in enumerate(mlp)
+               if isinstance(mod, torch.nn.Linear)]
+    for j, t in enumerate(linears):
+        p = f"{jax_prefix}/Dense_{j}/"
+        m[f"{port_prefix}.{t}.weight"] = (p + "kernel", _linear)
+        m[f"{port_prefix}.{t}.bias"] = (p + "bias", _identity)
+    return m
+
+
 def _jax_key_mapping(model):
     """Port state_dict key -> (flat JAX path, transform) for a
-    :class:`~lie_vae_tpu_torch.models.LieVAE`."""
-    m = {}
+    :class:`~lie_vae_tpu_torch.models.LieVAE`, and the set of the port's
+    keys JAX has no parameter for (constants the port keeps as they are)."""
+    m, own = {}, set()
     enc = model.encoder
+    if model.encode_mode == "toy":
+        m.update(_mlp_entries("encoder.1", "params/encoder", enc[1]))
     convs = [i for i, mod in enumerate(enc)
              if isinstance(mod, torch.nn.Conv2d)]
     bns = [i for i, mod in enumerate(enc)
@@ -59,22 +78,44 @@ def _jax_key_mapping(model):
         m[f"encoder.{t}.running_var"] = (s + "var", _identity)
 
     rg = "params/rep_group/"
-    m["reparameterize.0.mean_module.map.weight"] = (rg + "mean/Dense_0/kernel",
-                                                    _linear)
-    m["reparameterize.0.mean_module.map.bias"] = (rg + "mean/Dense_0/bias",
-                                                  _identity)
-    inner = "reparameterize.0.reparameterize.sigma_linear"
-    m[f"{inner}.weight"] = (rg + "sigma/kernel", _linear)
-    m[f"{inner}.bias"] = (rg + "sigma/bias", _identity)
+    rep = "reparameterize.0"
+    if model.latent_mode == "so3":
+        heads = ((("s2_map", "s2"), ("s1_map", "s1"))
+                 if model.mean_mode == "s2s1" else (("map", "Dense_0"),))
+        for name, path in heads:
+            p = f"{rep}.mean_module.{name}."
+            m[p + "weight"] = (f"{rg}mean/{path}/kernel", _linear)
+            m[p + "bias"] = (f"{rg}mean/{path}/bias", _identity)
+        inner = f"{rep}.reparameterize."
+        if model.reparameterize[0].reparameterize.fixed_sigma_value is None:
+            m[inner + "sigma_linear.weight"] = (rg + "sigma/kernel", _linear)
+            m[inner + "sigma_linear.bias"] = (rg + "sigma/bias", _identity)
+        else:
+            # the reference keeps an unused sigma head beside its
+            # fixed_sigma buffer; JAX has neither
+            own |= {inner + "sigma_linear.weight",
+                    inner + "sigma_linear.bias", inner + "fixed_sigma"}
+    else:
+        for name, path in (("mu_linear", "mu/"), ("sigma_linear", "sigma/")):
+            m[f"{rep}.{name}.weight"] = (rg + path + "kernel", _linear)
+            m[f"{rep}.{name}.bias"] = (rg + path + "bias", _identity)
 
-    m["decoder.item_rep"] = ("params/decoder/item_rep", _identity)
-    deconvs = [i for i, mod in enumerate(model.decoder.deconv)
-               if isinstance(mod, torch.nn.ConvTranspose2d)]
-    for j, t in enumerate(deconvs):
-        p = f"params/decoder/deconv/ConvTranspose_{j}/"
-        m[f"decoder.deconv.{t}.weight"] = (p + "kernel", _deconv)
-        m[f"decoder.deconv.{t}.bias"] = (p + "bias", _identity)
-    return m
+    dec = model.decoder
+    if model.decoder_mode == "mlp":
+        m.update(_mlp_entries("decoder.mlp", "params/decoder/MLP_0",
+                              dec.mlp))
+    elif isinstance(dec.item_rep, torch.nn.Parameter):
+        m["decoder.item_rep"] = ("params/decoder/item_rep", _identity)
+    else:
+        own.add("decoder.item_rep")          # fixed_item_rep, a buffer
+    if dec.deconv is not None:
+        deconvs = [i for i, mod in enumerate(dec.deconv)
+                   if isinstance(mod, torch.nn.ConvTranspose2d)]
+        for j, t in enumerate(deconvs):
+            p = f"params/decoder/deconv/ConvTranspose_{j}/"
+            m[f"decoder.deconv.{t}.weight"] = (p + "kernel", _deconv)
+            m[f"decoder.deconv.{t}.bias"] = (p + "bias", _identity)
+    return m, own
 
 
 def state_dict_from_jax(flat, model):
@@ -82,17 +123,19 @@ def state_dict_from_jax(flat, model):
     statistics given as numpy arrays under flat ``'/'`` paths.
 
     Strict: an unknown or missing JAX path, or a shape that does not fit,
-    raises ``ValueError``. BatchNorm ``num_batches_tracked`` keeps the
-    model's own value (flax keeps no such count).
+    raises ``ValueError``. What JAX keeps no parameter for keeps the
+    model's own value: BatchNorm ``num_batches_tracked``, a
+    ``fixed_item_rep`` and, with ``fixed_sigma``, its buffer and the
+    reference's unused sigma head.
     """
-    mapping = _jax_key_mapping(model)
+    mapping, kept = _jax_key_mapping(model)
     own = model.state_dict()
     flat = {k: v for k, v in flat.items() if k != "__step__"}
     used = {path for path, _ in mapping.values()}
     unknown = sorted(set(flat) - used)
     missing = sorted(path for path in used if path not in flat)
-    unmapped = sorted(k for k in own if k not in mapping
-                      and not k.endswith("num_batches_tracked"))
+    kept |= {k for k in own if k.endswith("num_batches_tracked")}
+    unmapped = sorted(k for k in own if k not in mapping and k not in kept)
     bad = []
     out = {}
     for key, (path, transform) in mapping.items():
@@ -109,9 +152,8 @@ def state_dict_from_jax(flat, model):
             "JAX parameters do not match the model config: unknown "
             f"{unknown}, missing {missing}, unmapped {unmapped}, "
             f"shape mismatches {bad}")
-    for key, value in own.items():
-        if key.endswith("num_batches_tracked"):
-            out[key] = value.detach().cpu().clone()
+    for key in kept:
+        out[key] = own[key].detach().cpu().clone()
     return out
 
 

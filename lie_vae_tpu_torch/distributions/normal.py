@@ -3,7 +3,7 @@
 Counterpart of the JAX package's ``distributions/normal.py``. Each sampler
 returns a stats struct carrying the quantities the densities read. Noise is
 an argument: pass ``eps`` (standard normal, shaped like the samples) to fix
-it, or a ``torch.Generator`` to draw it.
+it, or a ``torch.Generator`` to draw it; ``deterministic`` draws none.
 """
 import dataclasses
 import math
@@ -62,11 +62,32 @@ def _standard_normal(shape, like, eps, generator):
                        device=gen_device).to(like.device)
 
 
-def sample_zero_mean_gaussian(sigma, n=1, eps=None, generator=None):
+def sample_gaussian(mu, sigma, n=1, eps=None, generator=None,
+                    deterministic=False):
+    """z = mu + eps * sigma for n samples; returns :class:`GaussianStats`.
+
+    ``eps`` (n, *mu.shape) fixes the noise; otherwise it is drawn from
+    ``generator``. ``deterministic`` (the autoencoder mode) returns the
+    mean n times and draws nothing.
+    """
+    if deterministic:
+        z = mu.expand((n,) + tuple(mu.shape))
+    else:
+        z = mu + _standard_normal((n,) + tuple(mu.shape), mu, eps,
+                                  generator) * sigma
+    return GaussianStats(mu=mu, sigma=sigma, z=z)
+
+
+def sample_zero_mean_gaussian(sigma, n=1, eps=None, generator=None,
+                              deterministic=False):
     """z = eps * sigma for n samples; returns :class:`ZeroMeanGaussianStats`.
 
     ``eps`` (n, *sigma.shape) fixes the noise; otherwise it is drawn from
     ``generator`` (on its own device, then moved to sigma's).
+    ``deterministic`` gives z = 0 and draws nothing.
     """
-    eps = _standard_normal((n,) + tuple(sigma.shape), sigma, eps, generator)
+    shape = (n,) + tuple(sigma.shape)
+    if deterministic:
+        return ZeroMeanGaussianStats(sigma=sigma, z=sigma.new_zeros(shape))
+    eps = _standard_normal(shape, sigma, eps, generator)
     return ZeroMeanGaussianStats(sigma=sigma, z=eps * sigma)

@@ -118,15 +118,20 @@ def so3_wrapped_kl(v, sigma, k=10, clamp=1e-3, impl="fused"):
 
 
 def sample_so3(mu_lie, sigma, n=1, k=10, eps=None, generator=None,
-               density_impl="fused"):
+               density_impl="fused", deterministic=False):
     """Draw n group samples z = mu_lie @ exp(eps * sigma).
 
     ``eps`` (n, B, 3) standard normal fixes the noise; otherwise it is
-    drawn from ``generator``. ``k`` is the density's shell truncation and
-    ``density_impl`` its implementation.
+    drawn from ``generator``. ``deterministic`` returns the mean rotation
+    n times with zero algebra noise and draws nothing. ``k`` is the
+    density's shell truncation and ``density_impl`` its implementation.
     """
     inner = sample_zero_mean_gaussian(sigma, n=n, eps=eps,
-                                      generator=generator)
-    z = mu_lie @ so3_ops.expmap(inner.z)                 # (n, B, 3, 3)
+                                      generator=generator,
+                                      deterministic=deterministic)
+    if deterministic:
+        z = mu_lie.expand((n,) + tuple(mu_lie.shape))
+    else:
+        z = mu_lie @ so3_ops.expmap(inner.z)                 # (n, B, 3, 3)
     return SO3Stats(mu_lie=mu_lie, inner=inner, z=z, k=k,
-                   density_impl=density_impl)
+                    density_impl=density_impl)

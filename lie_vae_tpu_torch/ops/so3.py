@@ -11,8 +11,8 @@ import math
 import torch
 
 __all__ = [
-    "hat", "vee", "expmap", "logmap", "s2s2_gram_schmidt",
-    "group_matrix_to_quaternions", "quaternions_to_eazyz",
+    "hat", "vee", "expmap", "logmap", "s2s1rodrigues", "s2s2_gram_schmidt",
+    "vector_to_eazyz", "group_matrix_to_quaternions", "quaternions_to_eazyz",
     "group_matrix_to_eazyz", "eazyz_to_group_matrix",
     "quaternions_to_group_matrix",
     "random_quaternions", "random_group_matrices",
@@ -94,6 +94,16 @@ def logmap(R):
     return torch.where(near_pi, x_pi, x_generic)
 
 
+def s2s1rodrigues(s2_el, s1_el):
+    """S^2 x S^1 -> SO(3): the rotation about the unit axis ``s2_el`` by the
+    angle whose (cos, sin) is ``s1_el``, I + sin K + (1 - cos) K^2."""
+    K = hat(s2_el)
+    cos_theta = s1_el[..., 0, None, None]
+    sin_theta = s1_el[..., 1, None, None]
+    eye = torch.eye(3, dtype=s2_el.dtype, device=s2_el.device)
+    return eye + sin_theta * K + (1.0 - cos_theta) * (K @ K)
+
+
 def s2s2_gram_schmidt(v1, v2):
     """S^2 x S^2 -> SO(3) by Gram-Schmidt; rows are (e1, e2, e1 x e2)."""
     e1 = v1 / torch.clamp(torch.linalg.norm(v1, dim=-1, keepdim=True),
@@ -103,6 +113,16 @@ def s2s2_gram_schmidt(v1, v2):
                           min=1e-5)
     e3 = torch.linalg.cross(e1, e2, dim=-1)
     return torch.stack([e1, e2, e3], -2)
+
+
+def vector_to_eazyz(v):
+    """R^3 -> ZYZ Euler angles: tanh squashes each coordinate into
+    (-pi, pi) x (0, pi) x (-pi, pi)."""
+    scale = torch.tensor([math.pi, math.pi / 2, math.pi], dtype=v.dtype,
+                         device=v.device)
+    shift = torch.tensor([0.0, math.pi / 2, 0.0], dtype=v.dtype,
+                         device=v.device)
+    return torch.tanh(v) * scale + shift
 
 
 def group_matrix_to_quaternions(r):

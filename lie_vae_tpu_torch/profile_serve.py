@@ -77,7 +77,8 @@ def profile_request(name, fn, reps, out_dir, unit="request of 64",
     """Profile ``reps`` calls of ``fn``; print host ms per call, the
     device's busy share, and the device us per call of the 8 costliest
     device items and of every item whose name holds one of ``watch``.
-    Returns {item name: device us per call}."""
+    Returns ({item name: device us per call}, {"host_ms", "busy_ms",
+    "events"} per call)."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -105,7 +106,9 @@ def profile_request(name, fn, reps, out_dir, unit="request of 64",
     for kname, dur in ranked[:8] + [kv for kv in ranked[8:]
                                     if any(w in kv[0] for w in watch)]:
         print(f"    {dur / reps:9.2f} us  {kname[:100]}")
-    return {k: v / reps for k, v in by_name.items()}
+    return ({k: v / reps for k, v in by_name.items()},
+            {"host_ms": wall_us / reps / 1e3, "busy_ms": busy / reps / 1e3,
+             "events": len(events) / reps})
 
 
 def main(argv=None):

@@ -1,10 +1,12 @@
 """Where a training step's time goes on the card.
 
     python -m lie_vae_tpu_torch.profile_train [--steps 20] [--batch 64]
-        [--kernel_impl fused|pallas]
+        [--kernel_impl fused|pallas] [--bench_recipe]
 
 Trains the flagship model as ``bench.py`` does (sigma clamp pi * 10 / 2,
-lr 1e-3, clip 1e-5, beta 1; float32 throughout, TF32 off) from the
+lr 1e-3, clip 1e-5, beta 1; float32 throughout, TF32 off; with
+``--bench_recipe`` in ``bench.py``'s dtypes, ``models.bench_model``:
+bfloat16 conv and transpose-conv stacks, a float32 image head) from the
 converged reference weights (``converged_state/torch_clean/best.pt``) on
 the first CUDA device, on one batch of uint8 sphere-cube renders (the
 first poses of ``data_poses/spherecube.npz``, rendered by the port), with
@@ -12,7 +14,8 @@ the Lie-group kernels of ``--kernel_impl``. After two warm-up steps it
 profiles ``steps`` steps with ``torch.profiler`` and prints the host ms per
 step, the device's busy share of it (kernels and copies, overlaps merged;
 the rest is the idle share), the device us per step of the costliest
-device items and of the port's own kernels (the Wigner chain, the
+device items, of every cuDNN convolution kernel and of the port's own
+kernels (the Wigner chain, the
 synthesise-then-apply Wigner product and the SO(3) density), and their
 sum. Then it profiles each kernel of that path alone at the batch's shape
 and at B = 4096. The trace files go to ``build/profile/``.
@@ -27,7 +30,7 @@ import torch
 
 from lie_vae_tpu_torch import compat
 from lie_vae_tpu_torch.cli.gen_spherecube import POSE_SETS_DIR, render_images
-from lie_vae_tpu_torch.models import flagship_model
+from lie_vae_tpu_torch.models import bench_model, flagship_model
 from lie_vae_tpu_torch.ops import group_matrix_to_eazyz, random_group_matrices
 from lie_vae_tpu_torch.ops.kernels import (so3_density, wigner_block,
                                            wigner_fused)
@@ -38,6 +41,9 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CHECKPOINT = os.path.join(_ROOT, "converged_state", "torch_clean",
                            "best.pt")
 _KERNELS = ("wigner_chain", "wigner_block", "so3_density")
+# the conv stack's cuDNN kernels (implicit GEMMs, dgrad and wgrad engines),
+# listed with the port's own whatever their rank
+_CONV = ("xmma", "cudnn", "grad")
 
 
 def main(argv=None):
@@ -46,6 +52,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--kernel_impl", default="fused",
                     choices=["fused", "pallas"])
+    ap.add_argument("--bench_recipe", action="store_true",
+                    help="bench.py's bfloat16 stacks and float32 image head")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
@@ -61,8 +69,9 @@ def main(argv=None):
     weights = compat.load_torch(_CHECKPOINT)
     with np.load(os.path.join(POSE_SETS_DIR, "spherecube.npz")) as f:
         batch = render_images(f["r"][:args.batch, 0])
-    model = flagship_model(sigma_clamp=math.pi * 10 / 2,
-                           kernel_impl=args.kernel_impl)
+    model = (bench_model(kernel_impl=args.kernel_impl) if args.bench_recipe
+             else flagship_model(sigma_clamp=math.pi * 10 / 2,
+                                 kernel_impl=args.kernel_impl))
     model.load_state_dict(weights, strict=True)
     opt = make_optimizer(model.named_parameters(), lr=1e-3, clip_grads=1e-5)
     x = torch.as_tensor(batch, device="cuda")
@@ -72,9 +81,11 @@ def main(argv=None):
         train_step(model, opt, x, 1.0, generator=noise)
 
     step()
-    per_step = profile_request(f"train_step_{args.kernel_impl}", step,
-                               args.steps, out_dir,
-                               unit=f"step of {args.batch}", watch=_KERNELS)
+    name = f"train_step_{args.kernel_impl}" + (
+        "_bf16" if args.bench_recipe else "")
+    per_step, _ = profile_request(name, step, args.steps, out_dir,
+                                  unit=f"step of {args.batch}",
+                                  watch=_KERNELS + _CONV)
     ours = sum(us for name, us in per_step.items()
                if any(w in name for w in _KERNELS))
     print(f"    {ours:9.2f} us  the port's kernels together "

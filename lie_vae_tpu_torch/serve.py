@@ -3,8 +3,10 @@ fixed-batch ``encode`` / ``decode`` / ``reconstruct`` / ``sample`` /
 ``geodesic``.
 
 Counterpart of ``InferenceSession`` in the JAX package's ``serve.py``.
-Requests and answers are numpy arrays of any leading size N, NHWC images
-and (N, 3, 3) poses. Work runs in chunks of ``batch_size`` rows (the last
+Requests and answers are numpy arrays of any leading size N: NHWC images
+(or toy spectra, the model's ``out_shape``) and poses in the model's latent
+representation, (N, 3, 3) rotations for ``so3`` and (N, normal_dims)
+vectors for ``normal``. Work runs in chunks of ``batch_size`` rows (the last
 chunk padded by repeating its last row, the padding cut off again) under
 ``torch.inference_mode()``, with the model in ``eval()`` so BatchNorm uses
 its running statistics. Noise and Haar poses are drawn from a CPU
@@ -92,9 +94,17 @@ class InferenceSession:
         res = tuple(np.concatenate(parts)[:n] for parts in zip(*outs))
         return res if len(res) > 1 else res[0]
 
-    def _encode(self, x, eps):
-        s = self.model.encode(x, n=1, eps=eps[None])[0]
-        return s.mu_lie, s.inner.sigma, s.z[0]
+    @staticmethod
+    def _posterior(stats):
+        """(mean pose, noise scale) of a stats struct."""
+        if hasattr(stats, "mu_lie"):
+            return stats.mu_lie, stats.inner.sigma
+        return stats.mu, stats.sigma
+
+    def _encode(self, x, eps=None):
+        s = self.model.encode(x, n=1,
+                              eps=None if eps is None else eps[None])[0]
+        return (*self._posterior(s), s.z[0])
 
     def _decode(self, z):
         return self.model.decode(z[None])[0]
@@ -102,40 +112,61 @@ class InferenceSession:
     # ------------------------------------------------------------- surface
 
     def encode(self, images, eps=None):
-        """Posterior of N images: ``{"pose": (N, 3, 3) mean rotations,
-        "sigma": (N, 3) algebra noise scales, "sample": (N, 3, 3) one
-        posterior sample}``. ``eps`` (N, 3) standard normal fixes the
-        sample's noise; otherwise the session's generator draws it."""
+        """Posterior of N inputs: ``{"pose": (N, ...) posterior means,
+        "sigma": (N, ...) noise scales, "sample": (N, ...) one posterior
+        sample}``. ``eps`` (N, noise_dims) standard normal fixes the
+        sample's noise; otherwise the session's generator draws it (a
+        deterministic model draws none and samples its mean)."""
         x = self._normalize(images)
-        if eps is None:
-            eps = torch.randn((x.shape[0], 3), generator=self._gen).numpy()
-        pose, sigma, sample = self._chunked(
-            self._encode, x, np.asarray(eps, np.float32))
+        dims = self.model.noise_dims
+        if dims is None:
+            pose, sigma, sample = self._chunked(self._encode, x)
+        else:
+            if eps is None:
+                eps = torch.randn((x.shape[0], dims),
+                                  generator=self._gen).numpy()
+            pose, sigma, sample = self._chunked(
+                self._encode, x, np.asarray(eps, np.float32))
         return {"pose": pose, "sigma": sigma, "sample": sample}
 
     def decode(self, poses):
-        """Decode N rotations (N, 3, 3) to NHWC images."""
+        """Decode N poses (the model's latent representation) to outputs
+        (N, *out_shape)."""
         return self._chunked(self._decode, np.asarray(poses, np.float32))
 
     def reconstruct(self, images):
         """Encode to the posterior mean, then decode: the autoencoder path."""
         def recon(x):
-            eps = torch.zeros((1, x.shape[0], 3), device=x.device)
-            return self._decode(self.model.encode(x, eps=eps)[0].mu_lie)
+            dims = self.model.noise_dims
+            eps = (None if dims is None else
+                   torch.zeros((1, x.shape[0], dims), device=x.device))
+            s = self.model.encode(x, eps=eps)[0]
+            return self._decode(self._posterior(s)[0])
         return self._chunked(recon, self._normalize(images))
 
     def sample(self, n, seed=None):
-        """Decode n Haar-random poses, drawn from a generator seeded with
-        ``seed`` or else from the session's."""
+        """Decode n poses from the prior (Haar-random rotations for
+        ``so3``, N(0, I) for ``normal``), drawn from a generator seeded
+        with ``seed`` or else from the session's."""
         gen = (torch.Generator(device="cpu").manual_seed(seed)
                if seed is not None else self._gen)
-        z = ops.random_group_matrices(n, generator=gen, device="cpu")
+        if self.model.latent_mode == "so3":
+            z = ops.random_group_matrices(n, generator=gen, device="cpu")
+        else:
+            z = torch.randn((n, self.model.normal_dims), generator=gen)
         return self.decode(z.numpy())
 
     def geodesic(self, pose_a, pose_b, steps=16, decode=True):
-        """Poses r(t) = a exp(t log(a^T b)) at ``steps`` points of [0, 1],
-        the bi-invariant geodesic from a to b; decoded to frames
-        (steps, 64, 64, C) unless ``decode=False``."""
+        """Poses at ``steps`` points t of [0, 1] from a to b: for ``so3``
+        r(t) = a exp(t log(a^T b)), the bi-invariant geodesic; for
+        ``normal`` the straight line (1 - t) a + t b. Decoded to
+        (steps, *out_shape) unless ``decode=False``."""
+        if self.model.latent_mode != "so3":
+            t = np.linspace(0.0, 1.0, steps, dtype=np.float32)[:, None]
+            za = np.asarray(pose_a, np.float32)[None]
+            zb = np.asarray(pose_b, np.float32)[None]
+            poses = (1 - t) * za + t * zb
+            return self.decode(poses) if decode else poses
         with torch.inference_mode():
             a = torch.as_tensor(np.asarray(pose_a, np.float32),
                                 device=self.device)

@@ -35,8 +35,8 @@ from lie_vae_tpu_torch.train.state import make_optimizer
 
 
 def _normalize(x, dtype=torch.float32):
-    """uint8 images to [0, 1] in ``dtype`` (the model's); others as they
-    are."""
+    """uint8 images to [0, 1] in ``dtype`` (the model's); others (the toy
+    spectra) as they are."""
     return x.to(dtype) / 255.0 if x.dtype == torch.uint8 else x
 
 
@@ -44,13 +44,15 @@ def train_step(model, optimizer, x, beta, eps=None, generator=None,
                elbo_samples=1, control=None, control_p=1,
                monitor_sigma=False, equivariance_lamb=None,
                encoder_continuity_lamb=None):
-    """One optimizer step on the batch ``x`` (NHWC, uint8 or float, moved
-    to the model's device; uint8 scaled to [0, 1] in the model's dtype). ``eps`` (elbo_samples, B, 3) fixes the
-    posterior noise; otherwise ``generator`` draws it. ``beta`` is a Python
-    number. Returns the metrics as detached 0-dim tensors: ``recon``,
-    ``kl``, ``kls`` (a list, one per latent), ``loss`` and, with
-    ``monitor_sigma``, ``sigma_max``. After the step each parameter's
-    ``.grad`` holds its gradient of the loss, unclipped."""
+    """One optimizer step on the batch ``x`` (NHWC images, uint8 or float,
+    or toy spectra; moved to the model's device, uint8 scaled to [0, 1] in
+    the model's dtype). ``eps`` (elbo_samples, B, model.noise_dims) fixes
+    the posterior noise; otherwise ``generator`` draws it; a deterministic
+    model takes none. ``beta`` is a Python number. Returns the metrics as
+    detached 0-dim tensors: ``recon``, ``kl``, ``kls`` (a list, one per
+    latent), ``loss`` and, with ``monitor_sigma``, ``sigma_max``. After
+    the step each parameter's ``.grad`` holds its gradient of the loss,
+    unclipped."""
     if equivariance_lamb is not None or encoder_continuity_lamb is not None:
         raise NotImplementedError(
             "the equivariance and encoder-continuity losses are not ported "
@@ -104,7 +106,7 @@ class UnsupervisedExperiment:
     ``steps_per_call`` groups steps as the JAX harness scans them (reports
     land on the first group boundary at or after ``report_freq``); the steps
     of a group run one at a time, each with its own beta, as in the scan.
-    ``device_data`` keeps each dataset's uint8 images on the model's device
+    ``device_data`` keeps each dataset's inputs on the model's device
     and gathers batches there. ``mesh`` (data parallelism, ROADMAP.md,
     Queue A, A9) and the equivariance and continuity losses (A6) raise.
     """
@@ -174,19 +176,24 @@ class UnsupervisedExperiment:
         self.last_ll = None
 
     def _cache_device(self, dataset):
-        """The dataset's uint8 images, all of them, on the model's device."""
+        """The dataset's inputs, all of them, on the model's device (uint8
+        images, or the toy spectra as they are)."""
         images = dataset.prep_batch(dataset.gather(np.arange(len(dataset))))
         return torch.as_tensor(np.asarray(images[-1]), device=self.device)
 
     def _eps(self, stream, n, batch):
-        """Standard normal posterior noise (n, batch, 3) from the stream's
-        generator, on the model's device in its dtype."""
-        return torch.randn((n, batch, 3), generator=self._gens[stream]).to(
+        """Standard normal posterior noise (n, batch, model.noise_dims) from
+        the stream's generator, on the model's device in its dtype; None for
+        a deterministic model, which draws none."""
+        dims = self.model.noise_dims
+        if dims is None:
+            return None
+        return torch.randn((n, batch, dims), generator=self._gens[stream]).to(
             self.device, self.dtype)
 
     def _batches(self, loader, cached):
-        """The loader's batches of uint8 images: host arrays, or device
-        tensors gathered from the cached dataset by the same indices."""
+        """The loader's batches of inputs: host arrays, or device tensors
+        gathered from the cached dataset by the same indices."""
         if cached is None:
             return (np.asarray(b[-1]) for b in loader)
         batches = loader._index_batches()
