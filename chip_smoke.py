@@ -1,7 +1,8 @@
 """Drive the PyTorch port's serving path, its training step (in float32
 and in bench.py's bfloat16 recipe), its experiment CLI (sphere-cube renders,
-the toy experiment, the Gaussian baseline) and a Gaussian-latent session on
-one NVIDIA GPU and check them.
+the toy experiment, the Gaussian baseline), a Gaussian-latent session, the
+vMF latents, the HTTP server and the serving CLI's export on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
@@ -11,9 +12,9 @@ Phases, each timed:
 1. card: name and power limit (nvidia-smi), torch, CUDA and nvcc versions;
 2. build: the Wigner chain kernels (csrc/wigner_chain.cu), the density
    kernels (csrc/so3_density.cu) and the synthesise-then-apply Wigner
-   kernels (csrc/wigner_block.cu), one nvcc each, started together with
-   three more that compile each source with ``-Xptxas -v`` to report each
-   kernel's registers, stack frame and spills;
+   kernels (csrc/wigner_block.cu), one nvcc each, started together, each
+   with ``-Xptxas -v``, whose report of each kernel's registers, stack frame
+   and spills the build keeps beside the library;
 3. K1, the chain kernel without residuals, against the plain chain on the
    card over L in {0, 1, 3, 6, 10}, C in {1, 10, 16}, B in {1, 64, 4103},
    shared and per-sample spectra, transpose on and off; then both timed
@@ -57,9 +58,10 @@ Phases, each timed:
 8. renders: 1024 poses of data_poses/spherecube.npz rendered with the
    port's ray-caster (``cli/gen_spherecube.py``) into chiprun_out/;
 9. training, with ``kernel_impl='fused'`` (K2, K3, K4) and with
-   ``'pallas'`` (K5, K6, K3, K4), first in float32 (TF32 off), then in
-   ``bench.py``'s recipe (``models.bench_model``: bfloat16 conv and
-   transpose-conv stacks, a float32 image head): the flagship as
+   ``'pallas'`` (K5, K6, K3, K4), first in float32 (IEEE: the entry
+   points turn TF32 off), then in ``bench.py``'s recipe
+   (``models.bench_model``: bfloat16 conv and transpose-conv stacks, a
+   float32 image head): the flagship as
    ``bench.py`` trains it (sigma clamp pi * 10 / 2) from the converged
    weights, fresh optimizer (lr 1e-3, clip 1e-5), beta 1, batch 64 of the
    renders: one step on the card held against the exact float64 step on
@@ -86,7 +88,33 @@ Phases, each timed:
    five steps on the renders (K2 forward and backward each, the angle
    gradients through the tanh chart), then served at batch 64 (encode,
    decode, sample, reconstruct, geodesic: one launch of K1 per decode
-   chunk) and held against the same requests served on the CPU.
+   chunk) and held against the same requests served on the CPU;
+14. the vMF latents at the flagship's widths on the renders (the layers
+   they share with the flagship from its converged weights, the vMF heads
+   and the MLP decoder from a seed): a ``vmfq``/``action`` model, five
+   steps with ``kernel_impl``
+   'fused' (K2) and five with 'pallas' (K5, K6), and a ``vmf``/``mlp``
+   model, five steps (no kernel), each step (the first of the last model's)
+   held against the exact float64 step from the card's weights, optimizer
+   state and noise, as the flagship's step is held (the card's biases
+   before BatchNorm to BIAS_TOL, the CPU's not); then the
+   ``vmfq`` model served at batch 64 ('fused': K1 per decode chunk) and held
+   against a CPU session (encode, decode, sample, reconstruct, geodesic);
+15. ``cli.main --dataset spherecube --latent_mode vmfq --kernel_impl
+   pallas``, one epoch on the renders, checked as the CLI phase;
+16. the HTTP server (``serve_http.make_server``) over the flagship session
+   in a thread on an ephemeral port, driven by a client written here with
+   urllib and numpy: ``/healthz`` and every ``/v1/`` route in ``.npz`` and
+   JSON, each answer equal to the same call of an in-process session with
+   the same seed; ms per request of 64 through HTTP beside in process;
+17. ``cli.serve export``: the CLI phase's checkpoint.pt to an ``.npz``
+   artifact and back into a session that decodes as the checkpoint's, and
+   ``cli.serve sample`` from it on the card;
+18. a fresh interpreter with torch's default precision settings: an
+   ``InferenceSession`` decode of the flagship and one ``train_step``,
+   which must run in IEEE float32 (``precision.ieee_float32``) and leave
+   the settings as they found them; the flags seen inside, the cuDNN
+   kernels named TF32, and the distance to the CPU, printed.
 
 The last lines are a JSON record of the kernels, the card line, and
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -172,6 +200,15 @@ LL_ITEMS = 8
 # in other orders (cuDNN's algorithms against the CPU's)
 IMAGE_TOL = 1e-3
 POSE_TOL = 1e-3
+# the vMF models: the flagship's widths (conv 50, deconv 200, L = 6, C = 10,
+# RGB, BatchNorm) from seeded weights, trained a few steps on the renders
+VMF_CFG = dict(encode_mode="conv", deconv_mode="deconv", degrees=6,
+               rep_copies=10, conv_hidden=50, deconv_hidden=200, rgb=True,
+               batch_norm=True)
+VMF_STEPS = 5
+# HTTP requests of 64 timed (host clock, median) through the server and in
+# process
+HTTP_REPS = 20
 
 
 def phase(name):
@@ -433,12 +470,8 @@ def step_card_vs_cpu(weights, batch, eps, kernel_impl, exact, recipe=False):
     with the noise ``eps`` on the card, and on the CPU, in float32 (or with
     ``recipe`` in bench.py's bfloat16 stacks), held against ``exact``
     (:func:`train_once` in float64 on the CPU, which takes the plain ops
-    whatever ``kernel_impl`` says): loss, every gradient, the parameters and
-    BatchNorm statistics after it, each within its stated tolerance plus
-    twice the CPU's own error against the same exact step (where float32
-    loses digits on this input, as at a near-stationary point, or where
-    bfloat16 rounds, that error says by how much). Returns the card's model
-    and optimizer."""
+    whatever ``kernel_impl`` says) by :func:`check_against_exact`. Returns
+    the card's model and optimizer."""
     runs = {key: train_once(device, torch.float32, weights, batch, eps,
                             kernel_impl, recipe)
             for key, device in (("card", "cuda"), ("cpu", "cpu"))}
@@ -450,6 +483,36 @@ def step_card_vs_cpu(weights, batch, eps, kernel_impl, exact, recipe=False):
     print(f"   one step ({kind} stacks): loss {loss_g:.6f} on the card, "
           f"{loss_c:.6f} on the CPU, {loss_e:.6f} exact (recon "
           f"{float(met_e['recon']):.4f}, KL {float(met_e['kl']):.4f})")
+    worst, worst_bias = check_against_exact(mg, met_g, mc, met_c, me, met_e,
+                                            kind, recipe)
+    print(f"   against the exact step (gradients and statistics as a share "
+          f"of each tensor's max, parameters absolute): "
+          + "; ".join(f"{k}: card {v[1]:.3e}, CPU {kind} {v[2]:.3e}, "
+                      f"worst {v[0]:.3f} of the allowance"
+                      for k, v in worst.items())
+          + f"; the biases before BatchNorm at most {worst_bias[0]:.3e} "
+          f"(card) and {worst_bias[1]:.3e} (CPU) of their weight's gradient "
+          f"(tol {BIAS_TOL}" + (f" + {ARBITER} x the CPU's)" if recipe
+                                else ")"))
+    return mg, opt_g
+
+
+def check_against_exact(mg, met_g, mc, met_c, me, met_e, kind="float32",
+                        recipe=False, cpu_bias=True):
+    """A training step on the card (model ``mg``, metrics ``met_g``) and the
+    same step on the CPU in the same dtypes (``mc``, ``met_c``) held against
+    the exact one (float64 on the CPU: ``me``, ``met_e``): loss, every
+    gradient, the parameters and BatchNorm statistics after it, each within
+    its stated tolerance plus twice the CPU's own error against the same
+    exact step (where float32 loses digits on this input, as at a
+    near-stationary point, or where bfloat16 rounds, that error says by how
+    much). Returns, per kind (grad, param, stat), the worst share of the
+    allowance and the largest card and CPU errors, and the largest
+    gradients of the biases before BatchNorm on the card and the CPU as a
+    share of their weight's. In float32 the CPU's bias gradients are held to
+    BIAS_TOL too unless ``cpu_bias`` is False (the card's always are)."""
+    loss_g, loss_c, loss_e = (float(m["loss"]) for m in (met_g, met_c,
+                                                        met_e))
     if not abs(loss_g - loss_e) <= LOSS_TOL * abs(loss_e) \
             + ARBITER * abs(loss_c - loss_e):
         raise AssertionError(f"training loss {loss_g} on the card vs "
@@ -496,7 +559,8 @@ def step_card_vs_cpu(weights, batch, eps, kernel_impl, exact, recipe=False):
             r_card = p.grad.abs().max().item() / w.item()
             r_cpu = ref.grad.abs().max().item() / w.item()
             allow = BIAS_TOL + ARBITER * r_cpu if recipe else BIAS_TOL
-            if not max(r_card, 0.0 if recipe else r_cpu) <= allow:
+            if not max(r_card, 0.0 if recipe or not cpu_bias
+                       else r_cpu) <= allow:
                 raise AssertionError(
                     f"gradient of {name}: card {r_card:.3e}, CPU "
                     f"{r_cpu:.3e} of its weight's {w.item():.3e}, not "
@@ -520,16 +584,374 @@ def step_card_vs_cpu(weights, batch, eps, kernel_impl, exact, recipe=False):
         scale = b.abs().max().item()
         note("stat", name, excess(card, ref, b, STATS_TOL * scale, scale),
              "running statistic")
-    print(f"   against the exact step (gradients and statistics as a share "
-          f"of each tensor's max, parameters absolute): "
-          + "; ".join(f"{k}: card {v[1]:.3e}, CPU {kind} {v[2]:.3e}, "
-                      f"worst {v[0]:.3f} of the allowance"
-                      for k, v in worst.items())
-          + f"; the biases before BatchNorm at most {worst_bias[0]:.3e} "
-          f"(card) and {worst_bias[1]:.3e} (CPU) of their weight's gradient "
-          f"(tol {BIAS_TOL}" + (f" + {ARBITER} x the CPU's)" if recipe
-                                else ")"))
-    return mg, opt_g
+    return worst, worst_bias
+
+
+def train_state(model, opt):
+    """A ``train.checkpoint.load_checkpoint``-shaped dict of the model's and
+    the optimizer's state, on the CPU."""
+    return {"step": opt.count,
+            "model": {k: v.detach().cpu() for k, v in
+                      model.state_dict().items()},
+            "optimizer": {"count": opt.count,
+                          "mu": [m.detach().cpu() for m in opt.mu],
+                          "nu": [n.detach().cpu() for n in opt.nu]}}
+
+
+def vmf_steps(cfg, weights, batch, x_dev, seed, counters, want,
+              checked=VMF_STEPS):
+    """VMF_STEPS training steps of a vMF model on the card (lr 1e-3, clip
+    1e-5, beta 1) on the uint8 ``batch`` (``x_dev`` on the card), the first
+    ``checked`` of them each held against the same step on the CPU in
+    float32 and in float64 (the exact step) from the card's weights and
+    optimizer state before it, with the same noise, by
+    :func:`check_against_exact`. The noise, the accepted Beta draw (a
+    Beta(3/2, 3/2) from squared normals) and the tangent normal, comes from
+    a generator seeded with ``seed``. Each step launches ``want`` of the
+    kernels of ``counters``. Returns the card's model and optimizer, its
+    launches, the worst shares of the allowances and the last loss."""
+    from lie_vae_tpu_torch.models import LieVAE
+    from lie_vae_tpu_torch.train import make_optimizer, train_step
+    from lie_vae_tpu_torch.train.checkpoint import apply_state
+    card = LieVAE(**cfg)
+    card.load_state_dict(weights, strict=True)
+    cpu = LieVAE(**dict(cfg, device="cpu"))
+    exact = LieVAE(**dict(cfg, device="cpu")).double()
+    opts = [make_optimizer(m.named_parameters(), lr=1e-3, clip_grads=1e-5)
+            for m in (card, cpu, exact)]
+    gen = torch.Generator().manual_seed(seed)
+    n = batch.shape[0]
+    worst, launched = {}, [0] * len(counters)
+    for step in range(VMF_STEPS):
+        if step < checked:
+            state = train_state(card, opts[0])
+            apply_state(state, cpu, opts[1])
+            apply_state(state, exact, opts[2])
+        g = torch.randn((2, 3, 1, n), generator=gen)
+        x2, y2 = (g * g).sum(1)
+        eps = (x2 / (x2 + y2), torch.randn((1, n, 4), generator=gen))
+        before = [getattr(obj, attr) for obj, attr in counters]
+        met_g = train_step(card, opts[0], x_dev, 1.0, eps=eps)
+        delta = [getattr(obj, attr) - b
+                 for (obj, attr), b in zip(counters, before)]
+        launched = [a + d for a, d in zip(launched, delta)]
+        if delta != want:
+            raise AssertionError(f"a {cfg['latent_mode']} step launched "
+                                 f"{delta} (K1, K2 forward, K2 backward, K3, "
+                                 f"K4, K5, K6), expected {want}")
+        if not torch.isfinite(met_g["loss"]):
+            raise AssertionError(f"non-finite loss {float(met_g['loss'])}")
+        if step < checked:
+            met_c = train_step(cpu, opts[1], batch, 1.0, eps=eps)
+            met_e = train_step(exact, opts[2], batch, 1.0,
+                               eps=tuple(e.double() for e in eps))
+            # a random model's CPU float32 rounding of the biases' exact 0
+            # gradient reached 1.6e-3 of the weight's (an H100 host's CPU):
+            # the card, not that reference, is held to BIAS_TOL there
+            res, bias = check_against_exact(card, met_g, cpu, met_c, exact,
+                                            met_e, cpu_bias=False)
+            res["bias"] = [0.0, *bias]
+            for k, v in res.items():
+                worst[k] = [max(a, b) for a, b in zip(worst.get(k, v), v)]
+    return card, opts[0], launched, worst, float(met_g["loss"])
+
+
+def _urlopen(url, body=None, ctype=None):
+    """(status, Content-Type, body) of a GET, or of a POST of ``body``."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=body, headers={"Content-Type": ctype} if ctype else {})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.headers.get("Content-Type"), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type"), e.read()
+
+
+def http_phase(counters, counts, images):
+    """The flagship session behind ``serve_http.make_server`` (batch 64,
+    'fused', seed 0) in a thread on an ephemeral port, driven by a client
+    written here (urllib, numpy): ``/healthz``, every ``/v1/`` route in
+    ``.npz`` (64 uint8 images) and JSON (8 float images), and two bad
+    requests. Each answer must equal the same call of an in-process session
+    of the same weights and seed made in the same order (bitwise for
+    decode, within 1e-6 otherwise), with cuDNN's deterministic algorithms
+    for the comparison. Returns the ms per request of 64 through HTTP and
+    in process, and the kernels the server launched."""
+    import io
+    import threading
+    from lie_vae_tpu_torch import serve_http
+    from lie_vae_tpu_torch.models import flagship_model
+    from lie_vae_tpu_torch.ops import random_group_matrices
+    from lie_vae_tpu_torch.serve import InferenceSession
+    served, ref = (InferenceSession.from_torch(
+        CHECKPOINT, flagship_model(), batch_size=64, seed=0).warmup()
+        for _ in range(2))
+    server = serve_http.make_server(served)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    launched = dict.fromkeys(counts(), 0)
+
+    def post(route, arrays, fmt):
+        if fmt == "npz":
+            buf = io.BytesIO()
+            np.savez(buf, **arrays)
+            body, ctype = buf.getvalue(), "application/x-npz"
+        else:
+            body = json.dumps({k: np.asarray(v).tolist()
+                               for k, v in arrays.items()}).encode()
+            ctype = "application/json"
+        before = counts()
+        status, got_type, data = _urlopen(f"{url}/v1/{route}", body, ctype)
+        for k, v in counts().items():
+            launched[k] += v - before[k]
+        if status != 200:
+            raise AssertionError(f"/v1/{route}: HTTP {status} {data[:300]}")
+        if fmt == "npz":
+            with np.load(io.BytesIO(data)) as z:
+                return {k: z[k] for k in z.files}
+        return {k: np.asarray(v, np.float32)
+                for k, v in json.loads(data).items()}
+
+    def same(got, want, what, bitwise=False):
+        err = np.abs(got - want).max()
+        if got.shape != want.shape or not (
+                np.array_equal(got, want) if bitwise else err <= 1e-6):
+            raise AssertionError(f"{what}: HTTP {got.shape} vs in process "
+                                 f"{want.shape}, max |diff| {err}")
+
+    # cuDNN's transpose-conv algorithms sum in an order that varies between
+    # calls, so two decodes of one request differ in the last bits: the
+    # comparisons run with cudnn.deterministic set (the timing without it)
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        poses = random_group_matrices(
+            64, torch.Generator().manual_seed(14), device="cpu").numpy()
+        repeat = np.abs(ref.decode(poses) - ref.decode(poses)).max()
+        torch.backends.cudnn.deterministic = True
+        status, _, data = _urlopen(f"{url}/healthz")
+        health = json.loads(data)
+        if status != 200 or health["latent_mode"] != "so3" \
+                or health["batch_size"] != 64:
+            raise AssertionError(f"/healthz: {status} {health}")
+        floats = images[:8].astype(np.float32) / 255.0
+        checked = 0
+        for fmt, x, p in (("npz", images, poses), ("json", floats,
+                                                   poses[:8])):
+            enc, want = post("encode", {"images": x}, fmt), ref.encode(x)
+            for k in ("pose", "sigma", "sample"):
+                same(enc[k], want[k], f"{fmt} encode {k}")
+            same(post("decode", {"poses": p}, fmt)["images"], ref.decode(p),
+                 f"{fmt} decode", bitwise=True)
+            same(post("reconstruct", {"images": x}, fmt)["images"],
+                 ref.reconstruct(x), f"{fmt} reconstruct")
+            same(post("sample", {"n": 8, "seed": 3}, fmt)["images"],
+                 ref.sample(8, seed=3), f"{fmt} sample")
+            same(post("geodesic", {"pose_a": p[0], "pose_b": p[1],
+                                   "steps": 16}, fmt)["frames"],
+                 ref.geodesic(p[0], p[1], steps=16), f"{fmt} geodesic")
+            checked += 5
+        bad = [_urlopen(f"{url}/v1/nope", b"{}", "application/json")[0],
+               _urlopen(f"{url}/v1/decode", b"{}", "application/json")[0]]
+        if bad != [400, 400]:
+            raise AssertionError(f"bad route / missing field: HTTP {bad}")
+        routes_launched = dict(launched)
+        torch.backends.cudnn.deterministic = deterministic
+        ms = {}
+        for route, arrays, fn in (
+                ("decode", {"poses": poses}, lambda: ref.decode(poses)),
+                ("encode", {"images": images}, lambda: ref.encode(images))):
+            ms[route] = {"http": host_ms(lambda: post(route, arrays, "npz"),
+                                         reps=HTTP_REPS),
+                         "in_process": host_ms(fn, reps=HTTP_REPS)}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    print(f"   /healthz {health}; {checked} answers in .npz and JSON equal "
+          "the in-process session's (decode bitwise, with cuDNN's "
+          "deterministic algorithms: without them two in-process decodes of "
+          f"one request differ by {repeat:.1e}); a bad route and a missing "
+          f"field answered 400; launches by the server's requests "
+          f"{routes_launched}")
+    print("   ms per request of 64 (host clock, median of "
+          f"{HTTP_REPS}, .npz): " + "; ".join(
+              f"{k} {v['http']:.3f} through HTTP, {v['in_process']:.3f} in "
+              "process" for k, v in ms.items()))
+    if not routes_launched["launches"]:
+        raise AssertionError("the server never launched K1")
+    return ms, routes_launched
+
+
+def export_phase(cli_dir, flags):
+    """``cli.serve export`` of the CLI run's checkpoint.pt (model flags
+    ``flags``) to an .npz under build/, served by
+    ``InferenceSession.from_npz`` with the checkpoint's weights bit for bit,
+    decoding 16 fixed poses bit for bit as ``from_checkpoint`` does (with
+    cuDNN's deterministic algorithms); then ``cli.serve sample`` from the
+    artifact at its default device, the card."""
+    from lie_vae_tpu_torch.cli import main as cli_main
+    from lie_vae_tpu_torch.cli import serve as cli_serve
+    from lie_vae_tpu_torch.ops import random_group_matrices
+    from lie_vae_tpu_torch.serve import InferenceSession
+    out_dir = os.path.join(ROOT, "build", "smoke_export")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    ckpt = os.path.join(cli_dir, cli_main.CHECKPOINT)
+    art = cli_serve.main(["export", "--checkpoint", ckpt, "--out",
+                          os.path.join(out_dir, "artifact.npz")] + flags)
+    args = cli_main.parse_args(flags)
+    poses = random_group_matrices(
+        16, torch.Generator().manual_seed(15), device="cpu").numpy()
+    sessions = [InferenceSession.from_checkpoint(
+        ckpt, cli_serve._build_model(args), batch_size=64),
+        InferenceSession.from_npz(art, cli_serve._build_model(args),
+                                  batch_size=64)]
+    # (a JAX artifact has no BatchNorm step counter: the model keeps its own)
+    sd_a, sd_b = (s.model.state_dict() for s in sessions)
+    differ = [k for k in sd_a if not k.endswith("num_batches_tracked")
+              and not torch.equal(sd_a[k], sd_b[k])]
+    if sd_a.keys() != sd_b.keys() or differ:
+        raise AssertionError(f"the artifact's weights differ from the "
+                             f"checkpoint's: {differ}")
+    # two sessions' transpose convs sum in cuDNN's varying order unless
+    # its deterministic algorithms are asked for
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        a, b = (s.decode(poses) for s in sessions)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    samples = cli_serve.main(["sample", "--artifact", art, "-n", "8",
+                              "--out", os.path.join(out_dir, "samples.npz")]
+                             + flags)
+    with np.load(samples) as z:
+        check_images(z["images"], (8, 64, 64, 3), "cli.serve sample")
+    print(f"   {art}: {os.path.getsize(art) / 1e6:.1f} MB; served from the "
+          "artifact, the weights and statistics equal the checkpoint's bit "
+          "for bit and 16 "
+          f"poses decode within {np.abs(a - b).max():.1e} of the "
+          "checkpoint's (bit for bit required, with cuDNN's deterministic "
+          "algorithms); cli.serve sample wrote 8 images")
+    if not np.array_equal(a, b):
+        raise AssertionError(f"the exported artifact decodes otherwise: max "
+                             f"|diff| {np.abs(a - b).max()}")
+
+
+# run by precision_subprocess in a fresh interpreter: torch's own defaults
+_PRECISION_SCRIPT = r"""
+import json, math, sys
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+from lie_vae_tpu_torch import compat, precision
+from lie_vae_tpu_torch.models import LieVAE, flagship_model
+from lie_vae_tpu_torch.serve import InferenceSession
+from lie_vae_tpu_torch.train import make_optimizer, train_step
+
+ckpt, inputs_path = sys.argv[1:3]
+with np.load(inputs_path) as f:
+    batch, poses, cpu, exact_loss = (f["batch"], f["poses"], f["cpu_decode"],
+                                     float(f["exact_loss"]))
+before = precision.flags()
+seen = {"encode": set(), "decode": set()}
+
+
+def probe(name, fn):
+    def wrapped(self, *a, **k):
+        seen[name].add(precision.flags())
+        return fn(self, *a, **k)
+    return wrapped
+
+
+encode, decode = LieVAE.encode, LieVAE.decode
+LieVAE.encode, LieVAE.decode = probe("encode", encode), probe("decode", decode)
+
+
+def tf32_kernels(fn):
+    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sorted({e.name for e in prof.events()
+                        if "tf32" in e.name.lower()})
+
+
+sess = InferenceSession.from_torch(ckpt, flagship_model(), batch_size=64)
+out, k_ieee = tf32_kernels(lambda: sess.decode(poses))
+m = flagship_model(sigma_clamp=math.pi * 10 / 2)
+m.load_state_dict(compat.load_torch(ckpt), strict=True)
+opt = make_optimizer(m.named_parameters(), lr=1e-3, clip_grads=1e-5)
+eps = torch.randn((1, 64, 3), generator=torch.Generator().manual_seed(2))
+loss = float(train_step(m, opt, batch, 1.0, eps=eps)["loss"])
+after = precision.flags()
+inside = {k: sorted(v) for k, v in seen.items()}
+LieVAE.encode, LieVAE.decode = encode, decode
+
+
+def plain_decode():
+    with torch.inference_mode():
+        z = torch.as_tensor(poses, device="cuda")[None]
+        return sess.model.decode(z)[0].cpu().numpy()
+
+
+raw, k_default = tf32_kernels(plain_decode)
+print(json.dumps({
+    "torch": torch.__version__, "before": before, "after": after,
+    "inside": inside, "tf32_kernels_in_session": k_ieee,
+    "tf32_kernels_outside": k_default,
+    "decode_vs_cpu": float(np.abs(out - cpu).max()),
+    "decode_outside_vs_cpu": float(np.abs(raw - cpu).max()),
+    "train_step_loss": loss,
+    "train_step_loss_vs_exact": abs(loss - exact_loss) / abs(exact_loss)}))
+"""
+
+
+def precision_subprocess(batch, cpu_session, exact_loss):
+    """In a fresh interpreter (torch's default settings): a flagship
+    session's decode of 64 poses and one flagship train_step (the float32
+    training phase's first: the converged weights, ``batch``, its noise),
+    with a probe on LieVAE.encode / decode recording the precision settings
+    each call sees. Fails unless every call saw IEEE float32 for cuDNN
+    convolutions and cuBLAS matmuls, the process's own settings were the
+    same before and after, no TF32 kernel ran in the session's decode, and
+    that decode is within IMAGE_TOL of ``cpu_session``'s. Prints the same
+    decode outside the helper (torch's defaults), and the step's loss
+    against ``exact_loss`` (the exact step's), for the record."""
+    from lie_vae_tpu_torch.ops import random_group_matrices
+    poses = random_group_matrices(
+        64, torch.Generator().manual_seed(16), device="cpu").numpy()
+    path = os.path.join(ROOT, "build", "precision_inputs.npz")
+    np.savez(path, batch=batch, poses=poses,
+             cpu_decode=cpu_session.decode(poses), exact_loss=exact_loss)
+    proc = subprocess.run(
+        [sys.executable, "-c", _PRECISION_SCRIPT, CHECKPOINT, path],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"the fresh interpreter failed: "
+                             f"{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"   torch {res['torch']}: settings (cuDNN conv, cuBLAS matmul) "
+          f"before {res['before']}, inside the entry points "
+          f"{res['inside']}, after {res['after']}")
+    print(f"   TF32 kernels in the session's decode: "
+          f"{res['tf32_kernels_in_session']}; in the same decode outside "
+          f"the entry point (torch's defaults): "
+          f"{res['tf32_kernels_outside']}")
+    print(f"   decode vs the CPU: {res['decode_vs_cpu']:.3e} in the session "
+          f"(tol {IMAGE_TOL}), {res['decode_outside_vs_cpu']:.3e} outside it;"
+          f" train_step loss {res['train_step_loss']:.6f}, "
+          f"{res['train_step_loss_vs_exact']:.2e} of the exact step's")
+    ieee = [["ieee", "ieee"]]
+    if not (res["inside"]["encode"] == ieee and res["inside"]["decode"]
+            == ieee and res["before"] == res["after"]
+            and not res["tf32_kernels_in_session"]
+            and res["decode_vs_cpu"] <= IMAGE_TOL):
+        raise AssertionError(f"the entry points' precision: {res}")
+    return res
 
 
 def main():
@@ -541,18 +963,18 @@ def main():
         so3_wrapped_log_density_plain)
     from lie_vae_tpu_torch.models import flagship_model
     from lie_vae_tpu_torch.ops import (group_matrix_to_eazyz,
-                                       random_group_matrices)
+                                       random_group_matrices,
+                                       random_quaternions)
     from lie_vae_tpu_torch.ops.kernels import _build
     from lie_vae_tpu_torch.ops.kernels import so3_density
     from lie_vae_tpu_torch.ops.kernels import wigner_block
     from lie_vae_tpu_torch.ops.kernels import wigner_fused
     from lie_vae_tpu_torch.ops.wigner import block_wigner_apply_zjz
+    from lie_vae_tpu_torch.precision import ieee_float32
     from lie_vae_tpu_torch.profile_serve import device_us, profile_request
     from lie_vae_tpu_torch.serve import InferenceSession
     from lie_vae_tpu_torch.train import make_optimizer, train_step
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     fused = wigner_fused.block_wigner_matrix_multiply_fused
     dens = so3_density.so3_wrapped_log_density_fused
     block = wigner_block.block_wigner_matrix_multiply_pallas
@@ -584,17 +1006,12 @@ def main():
         return time.perf_counter() - tb
 
     def ptxas(name):
-        os.makedirs(_build.BUILD_DIR, exist_ok=True)
-        return ptxas_report(subprocess.run(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS[:4], "-cubin", "-Xptxas",
-             "-v", "-o", os.path.join(_build.BUILD_DIR, f"{name}.cubin"),
-             os.path.join(_build.CSRC, f"{name}.cu")],
-            capture_output=True, text=True, check=True).stderr, name)
+        with open(_build.ptxas_log_path(name)) as f:
+            return ptxas_report(f.read(), name)
 
-    with ThreadPoolExecutor(2 * len(sources)) as pool:
-        ptxas_runs = [pool.submit(ptxas, n) for n in sources]
+    with ThreadPoolExecutor(len(sources)) as pool:
         build_s = dict(zip(sources, pool.map(timed_build, sources)))
-        ptxas_all = {n: r.result() for n, r in zip(sources, ptxas_runs)}
+    ptxas_all = {n: ptxas(n) for n in sources}
     for n in sources:
         print(f"   {n}: {build_s[n]:.2f} s "
               f"({'already built' if cached[n] else 'nvcc'}) -> "
@@ -1262,11 +1679,14 @@ def main():
         csess = InferenceSession.from_checkpoint(ckpt_path, build(),
                                                  batch_size=64)
         pose_gen = torch.Generator().manual_seed(4)
-        fixed = (random_group_matrices(16, pose_gen, device="cpu")
-                 if args.latent_mode == "so3"
-                 else torch.randn((16, args.normal_dims),
-                                  generator=pose_gen)).numpy()
-        with torch.inference_mode():
+        if args.latent_mode == "so3":
+            fixed = random_group_matrices(16, pose_gen, device="cpu")
+        elif args.latent_mode in ("vmf", "vmfq"):
+            fixed = random_quaternions(16, pose_gen, device="cpu")
+        else:
+            fixed = torch.randn((16, args.normal_dims), generator=pose_gen)
+        fixed = fixed.numpy()
+        with torch.inference_mode(), ieee_float32():
             want_out = ref_model.decode(
                 torch.as_tensor(fixed, device=dev)[None])[0]
         before = counts()
@@ -1418,6 +1838,175 @@ def main():
                              "disagrees with the CPU's")
     done(t0)
 
+    t0 = phase(f"the vMF latents at the flagship's widths: a vmfq/action "
+               f"model, {VMF_STEPS} steps 'fused' and {VMF_STEPS} 'pallas', "
+               f"a vmf/mlp model, {VMF_STEPS} steps, each step held against "
+               "the CPU's")
+    vcfg = dict(VMF_CFG, latent_mode="vmfq", decoder_mode="action",
+                kernel_impl="fused")
+
+    def seeded(cfg, seed):
+        """The layers a vMF model shares with the flagship from the
+        converged weights, the rest (the vMF heads, an MLP decoder) from
+        ``seed``: from random weights alone the float32 conv gradients
+        cancel so far that the CPU's own float32 step is 13% of a
+        gradient's largest entry from the exact step, and no device can be
+        held to it."""
+        torch.manual_seed(seed)
+        own = LieVAE(**dict(cfg, device="cpu")).state_dict()
+        return {k: (weights[k] if k in weights and weights[k].shape
+                    == v.shape else v) for k, v in own.items()}
+
+    vweights = seeded(vcfg, 8)
+    vmf_paths, vmf_worst = {}, {}
+
+    def shares(worst):
+        bias = worst["bias"]
+        return "; ".join(f"{k}: card {v[1]:.3e}, CPU float32 {v[2]:.3e}, "
+                         f"worst {v[0]:.3f} of the allowance"
+                         for k, v in worst.items() if k != "bias") + (
+            f"; the biases before BatchNorm at most {bias[1]:.3e} (card, "
+            f"tol {BIAS_TOL}) and {bias[2]:.3e} (CPU) of their weight's "
+            "gradient")
+
+    for impl, want in (("fused", [0, 1, 1, 0, 0, 0, 0]),
+                       ("pallas", [0, 0, 0, 0, 0, 1, 1])):
+        tv = time.perf_counter()
+        vmodel, vopt, vmf_paths[impl], vmf_worst[impl], vloss = vmf_steps(
+            dict(vcfg, kernel_impl=impl), vweights, batch, x_dev, 9,
+            counters, want)
+        print(f"   vmfq/action, {impl!r}: {VMF_STEPS} steps, loss {vloss:.4f}"
+              f" after them, launches {vmf_paths[impl]} (K1, K2 forward, K2 "
+              f"backward, K3, K4, K5, K6); each against the exact step: "
+              + shares(vmf_worst[impl])
+              + f"; {time.perf_counter() - tv:.2f} s")
+        if impl == "fused":
+            vstate = {k: v.detach().cpu()
+                      for k, v in vmodel.state_dict().items()}
+            # the step as the harness runs it: the sampler's proposals from
+            # a CPU generator, accept/reject on the card
+            noise = torch.Generator().manual_seed(18)
+            # beside it, the same step with its noise already on the card
+            # (the sampler's host work left out): the difference is what
+            # the generator's path costs the host
+            g = torch.randn((2, 3, 1, 64), generator=noise)
+            x2, y2 = (g * g).sum(1)
+            fixed = ((x2 / (x2 + y2)).to(dev),
+                     torch.randn((1, 64, 4), generator=noise).to(dev))
+            vms, fixed_ms = [], []
+            for i in range(2 * TRAIN_STEPS):
+                kw = {"generator": noise} if i % 2 else {"eps": fixed}
+                ts = time.perf_counter()
+                met = train_step(vmodel, vopt, x_dev, 1.0, **kw)
+                torch.cuda.synchronize()
+                (vms if i % 2 else fixed_ms).append(
+                    1e3 * (time.perf_counter() - ts))
+                if not torch.isfinite(met["loss"]):
+                    raise AssertionError("non-finite vmfq loss")
+            _, vprof = profile_request(
+                "train_step_vmfq_fused", lambda: train_step(
+                    vmodel, vopt, x_dev, 1.0, generator=noise),
+                PROFILE_STEPS, PROFILE_DIR, unit="step of 64",
+                watch=("wigner",))
+            vmf_step_ms = statistics.median(vms[2:])
+            vmf_fixed_ms = statistics.median(fixed_ms[2:])
+            print(f"   vmfq 'fused', the generator's noise: ms per step "
+                  f"(host clock, median of steps 3-{TRAIN_STEPS}, taken in "
+                  f"turns with steps whose noise is on the card already) "
+                  f"{vmf_step_ms:.3f} ({vmf_fixed_ms:.3f} with the noise on "
+                  f"the card); under the profiler: device busy "
+                  f"{vprof['busy_ms']:.3f} ms, {vprof['events']:.0f} device "
+                  "events per step")
+    mcfg = dict(VMF_CFG, latent_mode="vmf", decoder_mode="mlp")
+    mweights = seeded(mcfg, 10)
+    *_, vmf_worst["vmf_mlp"], mloss = vmf_steps(
+        mcfg, mweights, batch, x_dev, 11, counters, [0] * 7, checked=1)
+    print(f"   vmf/mlp: {VMF_STEPS} steps, loss {mloss:.4f}, no kernel "
+          "launched; the first against the exact step: "
+          + shares(vmf_worst["vmf_mlp"]))
+    done(t0)
+
+    t0 = phase("the vmfq model served at batch 64 on the card ('fused') and "
+               "on the CPU")
+    qsess = InferenceSession(LieVAE(**vcfg), vstate, batch_size=64)
+    qcpu = InferenceSession(LieVAE(**dict(vcfg, device="cpu")), vstate,
+                            batch_size=64, device="cpu")
+    for obj, attr in counters:
+        setattr(obj, attr, 0)
+    q_enc = qsess.encode(batch)
+    pair_gen = torch.Generator().manual_seed(12)
+    g = torch.randn((2, 3, 64), generator=pair_gen)
+    x2, y2 = (g * g).sum(1)
+    pair = ((x2 / (x2 + y2)).numpy(),
+            torch.randn((64, 4), generator=pair_gen).numpy())
+    q_encp = qsess.encode(batch, eps=pair)
+    q_dec = qsess.decode(q_enc["pose"])
+    q_smp = qsess.sample(64, seed=13)
+    q_rec = qsess.reconstruct(batch)
+    q_geo = qsess.geodesic(q_enc["pose"][0], q_enc["pose"][1], steps=16)
+    vmfq_serve = counts()
+    if vmfq_serve["launches"] != 4 or any(
+            v for k, v in vmfq_serve.items() if k != "launches"):
+        raise AssertionError(f"the vmfq session launched {vmfq_serve}, "
+                             "expected K1 once per decode chunk (4)")
+    check_images(q_dec, (64, 64, 64, 3), "decode")
+    check_images(q_geo, (16, 64, 64, 3), "geodesic")
+    kappa = q_enc["sigma"]
+    if q_enc["pose"].shape != (64, 4) or kappa.shape != (64, 1) or not (
+            np.isfinite(kappa).all() and (kappa >= 1).all()):
+        raise AssertionError(f"vmfq encode: pose {q_enc['pose'].shape}, "
+                             f"kappa {kappa.shape}")
+    norms = np.linalg.norm(np.concatenate([q_enc["pose"], q_enc["sample"]]),
+                           axis=-1)
+    c_enc = qcpu.encode(batch)
+    c_encp = qcpu.encode(batch, eps=pair)
+    d_img_q = max(np.abs(a - b).max() for a, b in (
+        (q_dec, qcpu.decode(q_enc["pose"])), (q_smp, qcpu.sample(64, seed=13)),
+        (q_rec, qcpu.reconstruct(batch)),
+        (q_geo, qcpu.geodesic(q_enc["pose"][0], q_enc["pose"][1],
+                              steps=16))))
+    d_pose_q = max(np.abs(a[k] - b[k]).max() for a, b in (
+        (q_enc, c_enc), (q_encp, c_encp)) for k in ("pose", "sigma",
+                                                    "sample"))
+    print(f"   kappa from the heads: {kappa.min():.4f} .. {kappa.max():.4f}; "
+          f"|pose|, |sample| within {np.abs(norms - 1).max():.2e} of 1; "
+          f"launches {vmfq_serve['launches']} of K1 for four decode chunks; "
+          f"card vs CPU: max |output diff| {d_img_q:.3e} (tol {IMAGE_TOL}), "
+          f"max |pose/kappa/sample diff| {d_pose_q:.3e} (tol {POSE_TOL}), "
+          "the generator's draws and handed-over noise both")
+    if not (d_img_q <= IMAGE_TOL and d_pose_q <= POSE_TOL
+            and np.abs(norms - 1).max() < 1e-5):
+        raise AssertionError("the vmfq session on the card disagrees with "
+                             "the CPU's")
+    done(t0)
+
+    t0 = phase("the CLI on vMF: python -m lie_vae_tpu_torch.cli.main "
+               "--dataset spherecube --latent_mode vmfq --kernel_impl "
+               "pallas, one epoch")
+    _, vmfq_cli_s, vmfq_cli_launches = cli_run(
+        ["--dataset", "spherecube", "--latent_mode", "vmfq", "--kernel_impl",
+         "pallas", "--data_dir", DATA_DIR, "--epochs", "1"],
+        os.path.join(CLI_DIR, "vmfq"), block_keys,
+        fused_keys + dens_keys, "block_launches")
+    done(t0)
+
+    t0 = phase("the HTTP server on the card: serve_http over the flagship "
+               "session (batch 64, 'fused'), one client, against an "
+               "in-process session with the same seed")
+    http_ms, http_launches = http_phase(counters, counts, batch)
+    done(t0)
+
+    t0 = phase("cli.serve export: the CLI phase's checkpoint.pt -> .npz -> "
+               "a session; cli.serve sample from it on the card")
+    export_phase(CLI_DIR, ["--dataset", "spherecube", "--kernel_impl",
+                           "pallas"])
+    done(t0)
+
+    t0 = phase("precision in a fresh interpreter with torch's defaults: "
+               "a session's decode and one train_step")
+    c5 = precision_subprocess(batch, cpu, float(exact[2]["loss"]))
+    done(t0)
+
     k64, p64, b64, by64, us64 = timing[64]
     k4k, p4k, b4k, _, us4k = timing[4096]
     src_chain = "lie_vae_tpu_torch/csrc/wigner_chain.cu"
@@ -1490,6 +2079,11 @@ def main():
     paths["cli_spherecube_pallas"] = cli_launches
     paths.update({f"toy_cli_{k}": v[2] for k, v in toy_runs.items()})
     paths["normal_cli"] = normal_launches
+    paths["vmfq_train"] = dict(zip(counts(), (
+        a + b for a, b in zip(vmf_paths["fused"], vmf_paths["pallas"]))))
+    paths["vmfq_serve"] = vmfq_serve
+    paths["vmfq_cli"] = vmfq_cli_launches
+    paths["http"] = http_launches
     for entry in kernels:
         key = {"wigner_chain_fwd": "launches",
                "wigner_chain_fwd_res": "launches_residuals",
@@ -1501,6 +2095,10 @@ def main():
         entry["launches_by_path"] = {p: c[key] for p, c in paths.items()}
         entry["launches_by_path"]["toy_generate"] = (
             toy_gen["k1"] if key == "launches" else 0)
+        if not entry["launches"] or not any(
+                entry["launches_by_path"].values()):
+            raise AssertionError(f"{entry['name']} was launched on no path: "
+                                 f"{entry['launches_by_path']}")
     record = {"kernels": kernels, "build_s": build_s,
               "ptxas": ptxas_all, "pallas_op_device_us": op_us,
               "request_ms": req_ms,
@@ -1517,6 +2115,15 @@ def main():
               "toy_ll": {k: v[1] for k, v in toy_runs.items()},
               "normal_cli_epoch_s": normal_cli_s,
               "normal_session_max_diff": [float(d_img_n), float(d_pose_n)],
+              "vmf_step_worst_share": vmf_worst,
+              "vmfq_step_ms": vmf_step_ms,
+              "vmfq_step_ms_noise_on_card": vmf_fixed_ms,
+              "vmfq_step_profiled": vprof,
+              "vmfq_session_max_diff": [float(d_img_q), float(d_pose_q)],
+              "vmfq_kappa_range": [float(kappa.min()), float(kappa.max())],
+              "vmfq_cli_epoch_s": vmfq_cli_s,
+              "http_request_ms": http_ms,
+              "precision_fresh_process": c5,
               "total_s": time.perf_counter() - t_start}
     print(json.dumps(record))
     print(card)

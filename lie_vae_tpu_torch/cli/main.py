@@ -21,12 +21,12 @@ compute dtype of the JAX CLI is passed on to ``LieVAE``. Port flags:
 takes the synthesise-then-apply Wigner kernels instead; ``xla`` the plain
 ops). ``--profile_dir`` writes a ``torch.profiler`` trace. The checkpoint is
 ``<save_dir>/checkpoint.pt`` (``train.checkpoint``), which
-``serve.InferenceSession.from_checkpoint`` serves.
+``serve.InferenceSession.from_checkpoint`` serves. The run's device work
+is IEEE float32 (``precision.ieee_float32``: no TF32).
 
 Modes that are not ported raise ``NotImplementedError`` naming their
-ROADMAP.md item: the vMF latents (Queue A, A5), sc-pairs and the
-regularizers of ``reg.yaml``, ``contreg.yaml`` and ``scpairs.yaml`` (A6),
-the mesh flags (A9).
+ROADMAP.md item: sc-pairs and the regularizers of ``reg.yaml``,
+``contreg.yaml`` and ``scpairs.yaml`` (Queue A, A6), the mesh flags (A9).
 """
 import argparse
 import math
@@ -36,6 +36,7 @@ import torch
 
 from lie_vae_tpu_torch.data import SphereCubeDataset, ToyDataset, random_split
 from lie_vae_tpu_torch.models import LieVAE
+from lie_vae_tpu_torch.precision import ieee_float32
 from lie_vae_tpu_torch.train import (
     LinearSchedule, MetricWriter, UnsupervisedExperiment, get_beta_schedule)
 from lie_vae_tpu_torch.train.checkpoint import restore_state, save_state
@@ -51,8 +52,6 @@ def _not_ported(what, item):
 def check_ported(args):
     """Raise ``NotImplementedError`` naming the ROADMAP.md item of the
     first mode in ``args`` that the port does not run."""
-    if args.latent_mode in ("vmf", "vmfq"):
-        _not_ported(f"--latent_mode {args.latent_mode}", "A5")
     if args.dataset == "sc-pairs":
         _not_ported("--dataset sc-pairs", "A6")
     if args.equivariance is not None or args.encoder_continuity is not None:
@@ -136,6 +135,7 @@ def build_model(args, dataset, item_rep):
     )
 
 
+@ieee_float32()
 def main(argv=None):
     args = parse_args(argv)
     print({k: v for k, v in sorted(vars(args).items())})
@@ -239,7 +239,7 @@ def parse_args(argv=None):
     parser.add_argument("--decoder_mode", default="action",
                         help="[action, mlp]")
     parser.add_argument("--latent_mode", default="so3",
-                        help="[so3, normal] (vmf, vmfq: not ported)")
+                        help="[so3, normal, vmf, vmfq]")
     parser.add_argument("--mean_mode", default="s2s2",
                         help="For SO(3). Choose [q, alg, s2s2, s2s1]")
     parser.add_argument("--deconv_mode", default="deconv")

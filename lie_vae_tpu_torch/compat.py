@@ -1,5 +1,5 @@
-"""Carry weights into the port: from the JAX package's parameters, from its
-``.npz`` deployment artifacts, and from the original PyTorch reference's
+"""Carry weights between the port and the JAX package's parameters, its
+``.npz`` deployment artifacts, and the original PyTorch reference's
 checkpoints.
 
 The port's module tree has the reference's names and indices, so a
@@ -18,6 +18,9 @@ way:
 - a flax ``MLP``'s ``Dense_i``              -> ``Linear`` at Sequential
   index 2 i (the toy encoder at ``encoder.1``, the MLP decoder at
   ``decoder.mlp``)
+
+:func:`state_dict_to_jax` goes the other way through the same table, each
+transform inverted, so weights carry across both ways.
 """
 import numpy as np
 import torch
@@ -38,6 +41,19 @@ def _conv(a):
 def _deconv(a):
     return np.ascontiguousarray(
         np.transpose(a, (2, 3, 0, 1))[:, :, ::-1, ::-1])
+
+
+def _conv_inv(a):
+    return np.transpose(a, (2, 3, 1, 0))
+
+
+def _deconv_inv(a):
+    return np.ascontiguousarray(
+        np.transpose(a[:, :, ::-1, ::-1], (2, 3, 0, 1)))
+
+
+_INVERSE = {_identity: _identity, _linear: _linear, _conv: _conv_inv,
+            _deconv: _deconv_inv}
 
 
 def _mlp_entries(port_prefix, jax_prefix, mlp):
@@ -96,7 +112,9 @@ def _jax_key_mapping(model):
             own |= {inner + "sigma_linear.weight",
                     inner + "sigma_linear.bias", inner + "fixed_sigma"}
     else:
-        for name, path in (("mu_linear", "mu/"), ("sigma_linear", "sigma/")):
+        heads = (("mu_linear", "mu/"), ("k_linear", "k/")) if model.is_vmf \
+            else (("mu_linear", "mu/"), ("sigma_linear", "sigma/"))
+        for name, path in heads:
             m[f"{rep}.{name}.weight"] = (rg + path + "kernel", _linear)
             m[f"{rep}.{name}.bias"] = (rg + path + "bias", _identity)
 
@@ -157,6 +175,32 @@ def state_dict_from_jax(flat, model):
     return out
 
 
+def state_dict_to_jax(state_dict, model):
+    """The inverse of :func:`state_dict_from_jax`: the port's
+    ``state_dict`` (tensors or arrays) for ``model`` as float32 numpy arrays
+    under the JAX package's flat ``'/'`` paths (``params/...``,
+    ``batch_stats/...``), as its ``serve.export_npz`` writes them. What JAX
+    keeps no parameter for (BatchNorm ``num_batches_tracked``, a
+    ``fixed_item_rep``, a ``fixed_sigma`` and its unused head) is left out.
+    Strict: a missing or unknown key, or a shape that does not fit the
+    model, raises ``ValueError``."""
+    mapping, _ = _jax_key_mapping(model)
+    own = model.state_dict()
+    missing = sorted(k for k in mapping if k not in state_dict)
+    unknown = sorted(k for k in state_dict if k not in own)
+    bad = [f"{k}: {tuple(state_dict[k].shape)} vs {tuple(own[k].shape)}"
+           for k in mapping if k in state_dict
+           and tuple(state_dict[k].shape) != tuple(own[k].shape)]
+    if missing or unknown or bad:
+        raise ValueError(
+            "the state_dict does not match the model config: missing "
+            f"{missing}, unknown {unknown}, shape mismatches {bad}")
+    return {path: np.ascontiguousarray(_INVERSE[transform](
+                np.asarray(torch.as_tensor(state_dict[key]).detach().cpu()
+                           .float())), dtype=np.float32)
+            for key, (path, transform) in mapping.items()}
+
+
 def load_torch(path):
     """Read a reference checkpoint (a ``torch.save``'d state_dict) as a
     state_dict of the port: the duplicate ``rep_group.*`` registration of
@@ -164,6 +208,20 @@ def load_torch(path):
     state_dict = torch.load(path, map_location="cpu", weights_only=True)
     return {k: v for k, v in state_dict.items()
             if not k.startswith("rep_group.")}
+
+
+def save_torch(path, state_dict):
+    """``torch.save`` the port's ``state_dict`` as a reference checkpoint:
+    the reparameterizer's tensors under ``reparameterize.0.*`` and again
+    under ``rep_group.*``, as the reference registers it twice, so the
+    reference loads it with ``strict=True`` (and :func:`load_torch` reads it
+    back)."""
+    out = {k: torch.as_tensor(v).detach().cpu() for k, v in state_dict.items()}
+    prefix = "reparameterize.0."
+    out.update({"rep_group." + k[len(prefix):]: v for k, v in list(out.items())
+                if k.startswith(prefix)})
+    torch.save(out, path)
+    return path
 
 
 def load_npz(path):

@@ -15,11 +15,15 @@ float32; with a ``compute_dtype`` (e.g. ``torch.bfloat16``) a layer casts
 its input, weight and bias to it, computes the product without the bias,
 then adds the bias in that dtype, so the output is rounded where flax's
 is; BatchNorm takes its statistics and normalises in float32 and rounds
-its output once to its input's dtype; a stack's output goes back to
+its output once to its input's dtype; LeakyReLU multiplies a bfloat16
+input by its slope rounded to bfloat16 (JAX casts the weakly typed
+Python float to the input's dtype); a stack's output goes back to
 float32. Without one a layer computes in the promoted dtype of its input
 and its weight, as flax's does. The dtype is a plain attribute: it adds no
 parameter or buffer, so the state_dict keys stay the reference's.
 """
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -95,6 +99,24 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded(value, dtype):
+    return float(torch.tensor(value, dtype=dtype))
+
+
+class LeakyReLU(nn.LeakyReLU):
+    """``nn.LeakyReLU`` that, on a bfloat16 or float16 input, multiplies by
+    its slope rounded to that dtype first, as flax's ``leaky_relu`` does
+    (0.2 becomes 0.2001953125 in bfloat16); the product of two bfloat16
+    numbers is exact in float32 and rounds once, as in XLA."""
+
+    def forward(self, x):
+        slope = self.negative_slope
+        if x.dtype in _LOW:
+            slope = _rounded(slope, x.dtype)
+        return F.leaky_relu(x, slope, self.inplace)
+
+
 class MLP(nn.Sequential):
     """Linear layers with an activation between each two:
     in -> hidden (num_layers times) -> out; ``num_layers=0`` is one Linear.
@@ -133,7 +155,7 @@ class ConvEncoder(nn.Sequential):
             layers.append(Conv2d(c_in, w, 4, 2, 1, compute_dtype=dtype))
             if batch_norm:
                 layers.append(BatchNorm2d(w, eps=1e-5, momentum=0.1))
-            layers.append(nn.LeakyReLU(0.2))
+            layers.append(LeakyReLU(0.2))
             c_in = w
         layers.append(Conv2d(c_in, out_dims, 4, 1, 0, compute_dtype=dtype))
         super().__init__(*layers)

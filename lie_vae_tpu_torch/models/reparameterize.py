@@ -2,13 +2,14 @@
 samples from it.
 
 Counterpart of the JAX package's ``models/reparameterize.py``: the
-diagonal Gaussian (``NormalReparameterize``) and the SO(3) latent
+diagonal Gaussian (``NormalReparameterize``), the von Mises-Fisher latent
+on S^3 (``VmfReparameterize``) and the SO(3) latent
 (``SO3Reparameterize``, z = mu @ exp(eps * sigma), with its four mean heads
 and the algebra-noise scale of ``N0Reparameterize``, ``fixed_sigma``
 included). Module attribute names follow the original PyTorch reference
 (``mean_module.map``, ``reparameterize.sigma_linear``, ``mu_linear``,
-``mean_module.s2_map``), so its checkpoints load as they are. The vMF
-head is not ported yet (ROADMAP.md, Queue A, A5).
+``k_linear``, ``mean_module.s2_map``), so its checkpoints load as they
+are.
 """
 import torch
 import torch.nn.functional as F
@@ -40,6 +41,27 @@ class NormalReparameterize(nn.Module):
         return dist.sample_gaussian(
             self.mu_linear(h), _softplus_sigma(self.sigma_linear, h), n=n,
             eps=eps, generator=generator, deterministic=self.deterministic)
+
+
+class VmfReparameterize(nn.Module):
+    """von Mises-Fisher latent on S^{z_dim-1}: a mean head normalised to
+    the sphere (no floor, as the reference) and a concentration head
+    kappa = softplus(k) + 1; ``eps`` is the pair (accepted Beta draw,
+    tangent normal) of :func:`~lie_vae_tpu_torch.distributions.sample_vmf`,
+    or None to draw from ``generator``; ``deterministic`` returns mu."""
+
+    def __init__(self, in_dims, z_dim=4, deterministic=False):
+        super().__init__()
+        self.mu_linear = nn.Linear(in_dims, z_dim)
+        self.k_linear = nn.Linear(in_dims, 1)
+        self.deterministic = deterministic
+
+    def forward(self, h, n=1, eps=None, generator=None):
+        mu = self.mu_linear(h)
+        mu = mu / torch.linalg.norm(mu, dim=-1, keepdim=True)
+        kappa = F.softplus(self.k_linear(h)) + 1.0
+        return dist.sample_vmf(mu, kappa, n=n, eps=eps, generator=generator,
+                               deterministic=self.deterministic)
 
 
 class N0Reparameterize(nn.Module):

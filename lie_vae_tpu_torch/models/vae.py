@@ -3,8 +3,10 @@
 Counterpart of ``LieVAE`` in the JAX package's ``models/vae.py``, with its
 config strings:
 
-- ``latent_mode``: ``'so3'`` | ``'normal'`` (``'vmf'``, ``'vmfq'``: not
-  ported yet, ROADMAP.md, Queue A, A5);
+- ``latent_mode``: ``'so3'`` | ``'normal'`` | ``'vmf'`` | ``'vmfq'`` (the
+  von Mises-Fisher latent on S^3; ``'vmf'`` decodes the unit 4-vector
+  through the MLP decoder, ``'vmfq'`` reads it as a quaternion and decodes
+  its Euler angles through the action decoder);
 - ``decoder_mode``: ``'action'`` | ``'mlp'``;
 - ``encode_mode``: ``'conv'`` | ``'toy'`` (an ``MLP(in, 100, 2)`` on the
   flattened spectrum);
@@ -43,7 +45,8 @@ from lie_vae_tpu_torch import ops
 from lie_vae_tpu_torch.models.decoders import ActionDecoder, MLPDecoder
 from lie_vae_tpu_torch.models.nets import MLP, ConvEncoder, DeconvNet
 from lie_vae_tpu_torch.models.reparameterize import (NormalReparameterize,
-                                                     SO3Reparameterize)
+                                                     SO3Reparameterize,
+                                                     VmfReparameterize)
 
 # bench.py's sigma clamp: the k = 10 wrapped density's validity bound
 BENCH_SIGMA_CLAMP = math.pi * 10 / 2
@@ -61,7 +64,7 @@ def _dtype(name):
 
 
 class LieVAE(nn.Module):
-    """Homeomorphic VAE with a Lie-group (or Gaussian) latent.
+    """Homeomorphic VAE with a Lie-group, Gaussian or vMF latent.
 
     Submodule names and ``nn.Sequential`` indices are the original PyTorch
     reference's, so its ``state_dict`` loads once the duplicate
@@ -101,10 +104,6 @@ class LieVAE(nn.Module):
         self.kernel_impl = kernel_impl
         self.r_callback = r_callback
         in_dims = self._in_dims(group_reparam_in_dims)
-        if latent_mode in ("vmf", "vmfq"):
-            raise NotImplementedError(
-                f"latent_mode={latent_mode!r} is not ported yet (ROADMAP.md, "
-                "Queue A, A5)")
 
         def follow(override):
             return (_dtype(compute_dtype) if override == "unset"
@@ -135,6 +134,8 @@ class LieVAE(nn.Module):
         elif latent_mode == "normal":
             rep = NormalReparameterize(in_dims, normal_dims,
                                        deterministic=deterministic)
+        elif latent_mode in ("vmf", "vmfq"):
+            rep = VmfReparameterize(in_dims, 4, deterministic=deterministic)
         else:
             raise ValueError("Wrong latent mode")
         self.reparameterize = nn.ModuleList([rep])
@@ -185,24 +186,35 @@ class LieVAE(nn.Module):
 
     @property
     def group_dims(self):
-        """Width of a flattened latent sample: 9 (a rotation matrix) or
-        ``normal_dims``."""
-        return {"so3": 9, "normal": self.normal_dims}[self.latent_mode]
+        """Width of a flattened latent sample: 9 (a rotation matrix),
+        ``normal_dims``, or 4 (a unit 4-vector for ``vmf``/``vmfq``)."""
+        return {"so3": 9, "normal": self.normal_dims, "vmf": 4,
+                "vmfq": 4}[self.latent_mode]
+
+    @property
+    def is_vmf(self):
+        """Whether the latent is von Mises-Fisher, whose noise is a pair."""
+        return self.latent_mode in ("vmf", "vmfq")
 
     @property
     def noise_dims(self):
         """Width of the standard-normal noise one posterior sample takes:
-        3 (the so(3) algebra) or ``normal_dims``; None when
+        3 (the so(3) algebra), ``normal_dims``, or for vMF 4, the width of
+        the tangent normal beside the accepted Beta draw; None when
         ``deterministic`` (no noise is drawn)."""
         if self.deterministic:
             return None
-        return 3 if self.latent_mode == "so3" else self.normal_dims
+        return {"so3": 3, "normal": self.normal_dims, "vmf": 4,
+                "vmfq": 4}[self.latent_mode]
 
     def encode(self, x, n=1, eps=None, generator=None):
         """Inputs (B, *out_shape): NHWC images, or toy spectra (B, S, C) ->
-        a list of one stats struct with n samples (:class:`SO3Stats` or
-        :class:`GaussianStats`). ``eps`` (n, B, noise_dims) fixes the
-        noise; otherwise it is drawn from ``generator``."""
+        a list of one stats struct with n samples (:class:`SO3Stats`,
+        :class:`GaussianStats` or :class:`VonMisesFisherStats`). ``eps``
+        fixes the noise: a standard normal (n, B, noise_dims), or for vMF
+        the pair (accepted Beta draw (n, B), tangent normal (n, B, 4));
+        otherwise it is drawn from ``generator`` (for vMF the accept/reject
+        runs on the device, against the detached kappa)."""
         if self.encode_mode == "toy":
             h = self.encoder(x.reshape(x.shape[0], -1))
         else:
@@ -214,13 +226,16 @@ class LieVAE(nn.Module):
                 for r, f in zip(self.reparameterize, feats)]
 
     def decode(self, z_pose):
-        """(n, B, ...) latent samples ((3, 3) rotations or ``normal_dims``
-        vectors) -> (n, B, *out_shape)."""
+        """(n, B, ...) latent samples ((3, 3) rotations, ``normal_dims``
+        vectors or unit 4-vectors) -> (n, B, *out_shape); ``vmfq`` reads
+        its samples as quaternions."""
         n, b = z_pose.shape[:2]
         z = z_pose.reshape((n * b,) + tuple(z_pose.shape[2:]))
         if self.decoder_mode == "action":
             if self.latent_mode == "so3":
                 angles = ops.group_matrix_to_eazyz(z)
+            elif self.latent_mode == "vmfq":
+                angles = ops.quaternions_to_eazyz(z)
             else:
                 angles = ops.vector_to_eazyz(z)
             x = self.decoder(angles)
@@ -231,7 +246,8 @@ class LieVAE(nn.Module):
         return x.reshape((n, b) + self.out_shape)
 
     def forward(self, x, n=1, eps=None, generator=None):
-        """encode, sample, decode: returns (x_recon (n, B, ...), stats)."""
+        """encode, sample, decode: returns (x_recon (n, B, ...), stats);
+        ``eps`` and ``generator`` as :meth:`encode`'s."""
         stats = self.encode(x, n=n, eps=eps, generator=generator)
         return self.decode(stats[0].z), stats
 
@@ -247,7 +263,8 @@ class LieVAE(nn.Module):
         return [s.kl() for s in stats]
 
     def elbo(self, x, n=1, eps=None, generator=None):
-        """Returns (recon_loss (n, B), kl_summed (B,), kls, stats)."""
+        """Returns (recon_loss (n, B), kl_summed (B,), kls, stats); ``eps``
+        and ``generator`` as :meth:`encode`'s."""
         x_recon, stats = self(x, n=n, eps=eps, generator=generator)
         kls = self.kl(stats)
         recon = self.recon_loss(x_recon, x)
@@ -255,8 +272,11 @@ class LieVAE(nn.Module):
 
     def log_weights(self, x, n=1, eps=None, generator=None):
         """Per-sample importance log-weights log p(x|z) + log p(z) -
-        log q(z|x), (n, B): the inner term of the IWAE estimator. Runs in the
-        module's mode (the harness evaluates in ``eval()``)."""
+        log q(z|x), (n, B): the inner term of the IWAE estimator, with each
+        latent's ``log_prior`` and ``log_posterior`` (the uniform on S^3 and
+        the vMF density for vMF). Runs in the module's mode (the harness
+        evaluates in ``eval()``); ``eps`` and ``generator`` as
+        :meth:`encode`'s."""
         x_recon, stats = self(x, n=n, eps=eps, generator=generator)
         log_p_z = sum(s.log_prior() for s in stats)
         log_q_z_x = sum(s.log_posterior() for s in stats)
@@ -264,7 +284,8 @@ class LieVAE(nn.Module):
 
     def log_likelihood(self, x, n=1, eps=None, generator=None):
         """IWAE importance-sampled log-likelihood estimate, the mean over
-        the batch of logsumexp_n(log_weights) - log n; a 0-dim tensor."""
+        the batch of logsumexp_n(log_weights) - log n; a 0-dim tensor;
+        ``eps`` and ``generator`` as :meth:`encode`'s."""
         w = self.log_weights(x, n=n, eps=eps, generator=generator)
         return torch.mean(torch.logsumexp(w, dim=0) - math.log(float(n)))
 

@@ -5,10 +5,14 @@ The build runs ``nvcc`` once per source content, at first use, into
 ``build/kernels/`` beside the package (a directory git ignores):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v \
+         -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
 
-The sources include no PyTorch header, so a build takes seconds. A failed
-build raises; nothing falls back to a plain version.
+The sources include no PyTorch header, so a build takes seconds. ptxas's
+report of each kernel's registers, stack frame and spills (``-Xptxas -v``,
+which leaves the binary as it is) is kept in ``lib<name>-<hash>.ptxas.txt``
+beside the library. A failed build raises; nothing falls back to a plain
+version.
 """
 import hashlib
 import os
@@ -21,7 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def nvcc_path():
@@ -43,6 +47,11 @@ def library_path(name):
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
+def ptxas_log_path(name):
+    """Where the build of ``csrc/<name>.cu`` leaves ptxas's report."""
+    return library_path(name)[:-len(".so")] + ".ptxas.txt"
+
+
 def build(name):
     """Compile ``csrc/<name>.cu`` unless a library of the same source is
     already built; returns the library's path."""
@@ -59,6 +68,8 @@ def build(name):
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
                            f"{name}:\n{' '.join(cmd)}\n{proc.stdout}"
                            f"{proc.stderr}")
+    with open(ptxas_log_path(name), "w") as f:
+        f.write(proc.stderr)
     os.replace(tmp, out)        # atomic: concurrent builders never see half
     print(f"built {os.path.basename(out)} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)

@@ -9,8 +9,9 @@ device, profiles ``reps`` requests each of ``encode``, ``decode`` and
 milliseconds per request, the device's busy share of that time (kernels
 and copies, overlaps merged), and the device time per request of the
 costliest kernels and of the Wigner chain kernel. Then it profiles the
-Wigner chain kernel alone at B = 64 and B = 4096. Float32 throughout, TF32
-off, as in ``chip_smoke.py``. The trace files go to ``build/profile/``.
+Wigner chain kernel alone at B = 64 and B = 4096. Float32 throughout, in
+IEEE float32 (``precision.ieee_float32``, as the session itself runs). The
+trace files go to ``build/profile/``.
 """
 import argparse
 import json
@@ -26,6 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 from lie_vae_tpu_torch.models import flagship_model
 from lie_vae_tpu_torch.ops import group_matrix_to_eazyz, random_group_matrices
 from lie_vae_tpu_torch.ops.kernels import block_wigner_matrix_multiply_fused
+from lie_vae_tpu_torch.precision import ieee_float32
 from lie_vae_tpu_torch.serve import InferenceSession
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -111,14 +113,13 @@ def profile_request(name, fn, reps, out_dir, unit="request of 64",
              "events": len(events) / reps})
 
 
+@ieee_float32()
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     out_dir = os.path.join(_ROOT, "build", "profile")
     os.makedirs(out_dir, exist_ok=True)
     sess = InferenceSession.from_torch(

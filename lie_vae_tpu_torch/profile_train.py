@@ -1,10 +1,11 @@
 """Where a training step's time goes on the card.
 
     python -m lie_vae_tpu_torch.profile_train [--steps 20] [--batch 64]
-        [--kernel_impl fused|pallas] [--bench_recipe]
+        [--kernel_impl fused|pallas] [--bench_recipe] [--find_kernel NAME]
 
 Trains the flagship model as ``bench.py`` does (sigma clamp pi * 10 / 2,
-lr 1e-3, clip 1e-5, beta 1; float32 throughout, TF32 off; with
+lr 1e-3, clip 1e-5, beta 1; float32 throughout, in IEEE float32 as
+``train_step`` runs; with
 ``--bench_recipe`` in ``bench.py``'s dtypes, ``models.bench_model``:
 bfloat16 conv and transpose-conv stacks, a float32 image head) from the
 converged reference weights (``converged_state/torch_clean/best.pt``) on
@@ -19,6 +20,11 @@ kernels (the Wigner chain, the
 synthesise-then-apply Wigner product and the SO(3) density), and their
 sum. Then it profiles each kernel of that path alone at the batch's shape
 and at B = 4096. The trace files go to ``build/profile/``.
+
+``--find_kernel NAME`` names the layers behind the device kernels whose
+name holds NAME: it profiles two steps with ``record_shapes`` and prints,
+for each such kernel, the operator that launched it with its input shapes
+(and dtypes, where torch records them), and the model's parameters (by name) whose shape is among them.
 """
 import argparse
 import math
@@ -34,6 +40,7 @@ from lie_vae_tpu_torch.models import bench_model, flagship_model
 from lie_vae_tpu_torch.ops import group_matrix_to_eazyz, random_group_matrices
 from lie_vae_tpu_torch.ops.kernels import (so3_density, wigner_block,
                                            wigner_fused)
+from lie_vae_tpu_torch.precision import flags, ieee_float32
 from lie_vae_tpu_torch.profile_serve import profile_request
 from lie_vae_tpu_torch.train import make_optimizer, train_step
 
@@ -46,6 +53,39 @@ _KERNELS = ("wigner_chain", "wigner_block", "so3_density")
 _CONV = ("xmma", "cudnn", "grad")
 
 
+def find_kernel(model, step, name, steps=2):
+    """Print the operators (with their input shapes) that launch the
+    device kernels whose name holds ``name`` in ``steps`` calls of ``step``,
+    and the parameters of ``model`` whose shape is among those inputs."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    shapes = {}
+    for pname, p in model.named_parameters():
+        shapes.setdefault(tuple(p.shape), []).append(pname)
+    found = {}
+    for evt in prof.events():
+        for k in getattr(evt, "kernels", []):
+            if name in k.name:
+                key = (evt.name, repr(evt.input_shapes),
+                       repr(getattr(evt, "input_dtypes", None)), k.name)
+                entry = found.setdefault(key, [0.0, evt.input_shapes])
+                entry[0] += k.duration
+    print(f"kernels holding {name!r} in {steps} steps (precision flags "
+          f"{flags()}): {len(found)} launching operator(s)")
+    for (op, in_shapes, dtypes, kname), (us, inputs) in found.items():
+        params = sorted({pn for s in inputs if s
+                         for pn in shapes.get(tuple(s), [])})
+        print(f"    {us / steps:9.2f} us  {kname[:90]}\n"
+              f"        from {op} inputs {in_shapes} {dtypes}\n"
+              f"        parameters of that shape: {params}")
+    return found
+
+
+@ieee_float32()
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=20)
@@ -54,11 +94,12 @@ def main(argv=None):
                     choices=["fused", "pallas"])
     ap.add_argument("--bench_recipe", action="store_true",
                     help="bench.py's bfloat16 stacks and float32 image head")
+    ap.add_argument("--find_kernel", default=None,
+                    help="name the layers behind the device kernels whose "
+                         "name holds this")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     out_dir = os.path.join(_ROOT, "build", "profile")
     os.makedirs(out_dir, exist_ok=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -81,6 +122,8 @@ def main(argv=None):
         train_step(model, opt, x, 1.0, generator=noise)
 
     step()
+    if args.find_kernel:
+        find_kernel(model, step, args.find_kernel)
     name = f"train_step_{args.kernel_impl}" + (
         "_bf16" if args.bench_recipe else "")
     per_step, _ = profile_request(name, step, args.steps, out_dir,

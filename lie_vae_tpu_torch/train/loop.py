@@ -20,6 +20,9 @@ its constructor's keywords, its per-step beta schedule, its report cadence,
 tags and printed line, its sigma-max monitor, its ``test()`` and its
 ``log_likelihood``. PyTorch runs eagerly, so there is nothing to compile
 and no padding: a ragged evaluation batch is evaluated as it is.
+
+Both run their device work in IEEE float32 (``precision.ieee_float32``: no
+TF32 convolutions or matmuls), the caller's settings restored after.
 """
 import math
 import os
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from lie_vae_tpu_torch.data.loader import BatchLoader
+from lie_vae_tpu_torch.precision import ieee_float32
 from lie_vae_tpu_torch.train.checkpoint import apply_state
 from lie_vae_tpu_torch.train.logging import MetricWriter
 from lie_vae_tpu_torch.train.state import make_optimizer
@@ -40,6 +44,7 @@ def _normalize(x, dtype=torch.float32):
     return x.to(dtype) / 255.0 if x.dtype == torch.uint8 else x
 
 
+@ieee_float32()
 def train_step(model, optimizer, x, beta, eps=None, generator=None,
                elbo_samples=1, control=None, control_p=1,
                monitor_sigma=False, equivariance_lamb=None,
@@ -47,9 +52,10 @@ def train_step(model, optimizer, x, beta, eps=None, generator=None,
     """One optimizer step on the batch ``x`` (NHWC images, uint8 or float,
     or toy spectra; moved to the model's device, uint8 scaled to [0, 1] in
     the model's dtype). ``eps`` (elbo_samples, B, model.noise_dims) fixes
-    the posterior noise; otherwise ``generator`` draws it; a deterministic
-    model takes none. ``beta`` is a Python number. Returns the metrics as
-    detached 0-dim tensors: ``recon``, ``kl``, ``kls`` (a list, one per
+    the posterior noise (for vMF the pair of ``LieVAE.encode``); otherwise
+    ``generator`` draws it; a deterministic model takes none. ``beta`` is a
+    Python number. Returns the metrics as detached 0-dim tensors:
+    ``recon``, ``kl``, ``kls`` (a list, one per
     latent), ``loss`` and, with ``monitor_sigma``, ``sigma_max``. After
     the step each parameter's ``.grad`` holds its gradient of the loss,
     unclipped."""
@@ -101,7 +107,10 @@ class UnsupervisedExperiment:
     of training, evaluation and the IW-LL comes from three CPU
     ``torch.Generator``s seeded from ``seed`` (so a run on the card and one
     on the CPU with the same seed draw the same numbers), the training
-    order from ``BatchLoader`` with ``seed`` as the JAX harness's.
+    order from ``BatchLoader`` with ``seed`` as the JAX harness's. A vMF
+    model takes its stream's generator itself: its accept/reject needs the
+    posterior's kappa, so the sampler draws the proposals and picks on the
+    device.
 
     ``steps_per_call`` groups steps as the JAX harness scans them (reports
     land on the first group boundary at or after ``report_freq``); the steps
@@ -191,6 +200,16 @@ class UnsupervisedExperiment:
         return torch.randn((n, batch, dims), generator=self._gens[stream]).to(
             self.device, self.dtype)
 
+    def _noise(self, stream, n, batch):
+        """The posterior noise keywords of n samples of ``batch`` items from
+        the stream: ``eps`` (:meth:`_eps`); for a vMF model the stream's
+        ``generator`` itself; nothing for a deterministic model."""
+        if self.model.noise_dims is not None \
+                and getattr(self.model, "is_vmf", False):
+            return {"generator": self._gens[stream]}
+        eps = self._eps(stream, n, batch)
+        return {} if eps is None else {"eps": eps}
+
     def _batches(self, loader, cached):
         """The loader's batches of inputs: host arrays, or device tensors
         gathered from the cached dataset by the same indices."""
@@ -204,6 +223,7 @@ class UnsupervisedExperiment:
     # -------------------------------------------------------------- eval
 
     @torch.no_grad()
+    @ieee_float32()
     def test(self):
         """Full pass over the evaluation loader in eval mode; returns the
         (recon, kl, *kls) means as float64 numpy: per batch the mean over
@@ -216,7 +236,7 @@ class UnsupervisedExperiment:
                            self.dtype)
             recon, kl_sum, kls, _ = self.model.elbo(
                 x, n=self.elbo_samples,
-                eps=self._eps("eval", self.elbo_samples, x.shape[0]))
+                **self._noise("eval", self.elbo_samples, x.shape[0]))
             vals.append(torch.stack([torch.mean(recon), torch.mean(kl_sum)]
                                     + [torch.mean(k) for k in kls]))
         self.model.train()
@@ -229,6 +249,7 @@ class UnsupervisedExperiment:
 
     # ------------------------------------------------------------- train
 
+    @ieee_float32()
     def train(self, epoch):
         """One epoch. Reference: unsupervised.py:69-156 (same reporting
         cadence, tags and printed line)."""
@@ -246,7 +267,7 @@ class UnsupervisedExperiment:
                 beta = self.beta_schedule(global_it)
                 metrics = train_step(
                     self.model, self.optimizer, xb, beta,
-                    eps=self._eps("train", self.elbo_samples, xb.shape[0]),
+                    **self._noise("train", self.elbo_samples, xb.shape[0]),
                     elbo_samples=self.elbo_samples, control=self.control,
                     control_p=self.control_p,
                     monitor_sigma=self._monitor_sigma)
@@ -310,6 +331,7 @@ class UnsupervisedExperiment:
 
     # --------------------------------------------------------- profiling
 
+    @ieee_float32()
     def profile(self, log_dir, n_calls=3):
         """Trace ``n_calls`` training steps on the first batch with
         ``torch.profiler`` (after one untraced step) into
@@ -320,7 +342,7 @@ class UnsupervisedExperiment:
 
         def step():
             train_step(self.model, self.optimizer, x, beta,
-                       eps=self._eps("train", self.elbo_samples, x.shape[0]),
+                       **self._noise("train", self.elbo_samples, x.shape[0]),
                        elbo_samples=self.elbo_samples, control=self.control,
                        control_p=self.control_p)
 
@@ -341,6 +363,7 @@ class UnsupervisedExperiment:
     # ---------------------------------------------------- log-likelihood
 
     @torch.no_grad()
+    @ieee_float32()
     def log_likelihood(self, dataset, n=500, max_items=None, batch_size=1,
                        n_chunk=None, return_items=False):
         """Importance-sampled LL over a dataset, in eval mode.
@@ -377,7 +400,7 @@ class UnsupervisedExperiment:
             for _ in range(chunks):
                 w = self.model.log_weights(
                     x, n=n_chunk,
-                    eps=self._eps("ll", n_chunk, x.shape[0])).double()
+                    **self._noise("ll", n_chunk, x.shape[0])).double()
                 lses.append(torch.logsumexp(w, dim=0))
                 sums = sums + w.sum(0)
             lse = torch.logsumexp(torch.stack(lses), dim=0)

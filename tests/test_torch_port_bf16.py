@@ -23,6 +23,14 @@ across by ``state_dict_from_jax``:
   The ratios are printed (``-s``) and kept in ``PERF.md``;
 - the conv and linear bias gradients, which the JAX bf16 model sums in
   bfloat16 (ROADMAP.md, Queue C, C4), are held to float32 instead;
+- LeakyReLU on bfloat16 equals flax's bit for bit: flax multiplies by the
+  slope rounded to bfloat16 (ROADMAP.md, Queue C, C6);
+- the last encoder conv's and the sigma head's weight gradients, each on
+  its own, within 1.5 times the JAX bf16 model's own spread: its distance
+  from itself when every input pixel moves by one float32 ulp (which flips
+  bfloat16 roundings at ties, as the two implementations' float32
+  arithmetic does), over its distance from float32. The rounding points
+  agree (C6); what is left is where ties fall;
 - ``decoder_dtype='float32'`` is no farther from float32 than all-bf16;
 - ``bench.py``'s recipe (``bench_model``: bf16 stacks, float32 image head,
   sigma clamp) keeps the flagship's state_dict, loads the converged
@@ -64,6 +72,11 @@ def setup():
     flat = models_test._flat_jax_weights(JaxLieVAE(**KW), seed=1)
     x = np.random.default_rng(2).random((2, 64, 64, 3), dtype=np.float32)
     return flat, x
+
+
+def _ulp(x):
+    """x with every element moved up by one float32 ulp."""
+    return np.nextafter(x, np.float32(np.inf)).astype(np.float32)
 
 
 def _jax_run(flat, x, **dtypes):
@@ -119,6 +132,7 @@ def runs(setup):
     flat, x = setup
     return {
         "jax_f32": _jax_run(flat, x), "jax_bf16": _jax_run(flat, x, **BF16),
+        "jax_bf16_ulp": _jax_run(flat, _ulp(x), **BF16),
         "f32": _port_run(flat, x), "bf16": _port_run(flat, x, **BF16),
         "all_f32": _port_run(flat, x, **ALL_F32),
         "dec_f32": _port_run(flat, x, **DEC_F32)}
@@ -200,6 +214,54 @@ def test_bf16_bias_gradients_no_farther_from_float32_than_jax(runs):
               f"{_l2(jbf[1][k] - jf[1][k]) / _l2(jf[1][k]):.2e} of its norm "
               "from float32")
         assert _l2(port[1][k] - ref) <= 0.01 * _l2(ref), k
+
+
+def test_leaky_relu_rounds_its_slope_as_flax():
+    """flax's leaky_relu on bfloat16 multiplies by bfloat16(0.2) =
+    0.2001953125 (JAX casts the weakly typed Python float to the input's
+    dtype); the port's LeakyReLU does the same, bit for bit, over every
+    finite negative bfloat16 of magnitude below 2^16 and a few positive
+    ones, forward and backward."""
+    from flax import linen as fnn
+    from lie_vae_tpu_torch.models.nets import LeakyReLU
+    bits = np.arange(0x8D00, 0xC780, dtype=np.uint32)
+    x = (bits << 16).view(np.float32)
+    x = np.concatenate([x, -x[:: 97]])
+    g = np.random.default_rng(5).normal(size=x.shape).astype(np.float32)
+
+    @jax.jit
+    def ref(x, g):
+        y, vjp = jax.vjp(lambda x: fnn.leaky_relu(x, 0.2),
+                         x.astype(jnp.bfloat16))
+        return y, vjp(g.astype(jnp.bfloat16))[0]
+
+    compiled = ref.lower(x, g).compile(
+        compiler_options={"xla_allow_excess_precision": False})
+    want_y, want_g = (np.asarray(a, np.float32) for a in compiled(x, g))
+    xt = torch.tensor(x).to(torch.bfloat16).requires_grad_()
+    y = LeakyReLU(0.2)(xt)
+    y.backward(torch.tensor(g).to(torch.bfloat16))
+    assert y.dtype == torch.bfloat16
+    np.testing.assert_array_equal(y.detach().float().numpy(), want_y)
+    np.testing.assert_array_equal(xt.grad.float().numpy(), want_g)
+    plain = torch.nn.functional.leaky_relu(xt.detach(), 0.2).float().numpy()
+    assert (plain != want_y).any()      # the plain op rounds otherwise
+
+
+@pytest.mark.parametrize("key", [
+    "encoder.12.weight",
+    "reparameterize.0.reparameterize.sigma_linear.weight"])
+def test_bf16_last_conv_and_sigma_head_gradients(runs, key):
+    """||port bf16 - JAX bf16|| / ||JAX bf16 - JAX f32|| for the tensor,
+    within 1.5 times the same ratio of the JAX bf16 model against itself
+    with its input one float32 ulp up (ROADMAP.md, Queue C, C6)."""
+    port, jbf, jf, jbu = (runs["bf16"][1][key], runs["jax_bf16"][1][key],
+                          runs["jax_f32"][1][key],
+                          runs["jax_bf16_ulp"][1][key])
+    spread = _l2(jbf - jf)
+    ratio, floor = _l2(port - jbf) / spread, _l2(jbu - jbf) / spread
+    print(f"{key}: port {ratio:.3f}, JAX one ulp up {floor:.3f}")
+    assert ratio <= 1.5 * floor, (ratio, floor)
 
 
 def test_decoder_float32_is_no_farther_than_all_bf16(runs):

@@ -40,6 +40,7 @@ from lie_vae_tpu.models import LieVAE as JaxLieVAE
 from lie_vae_tpu.train import state as jstate
 from lie_vae_tpu_torch.cli import gen_spherecube
 from lie_vae_tpu_torch.cli import main as cli_main
+from lie_vae_tpu_torch.cli import serve as cli_serve
 from lie_vae_tpu_torch.compat import state_dict_from_jax
 from lie_vae_tpu_torch.data import SphereCubeDataset, random_split
 from lie_vae_tpu_torch.models import LieVAE
@@ -379,10 +380,16 @@ def test_cli_runs_end_to_end(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("args,item", [
     (["--config", "reg"], "A6"), (["--config", "contreg"], "A6"),
     (["--config", "scpairs"], "A6"), (["--mesh_data", "2"], "A9"),
-    (["--latent_mode", "vmf"], "A5")])
+    (["serve", "export", "--aot", "--checkpoint", "unused"], "A8b"),
+    (["serve", "sample", "--data_devices", "2", "--checkpoint", "unused"],
+     "A9")])
 def test_cli_modes_not_ported_raise(args, item):
+    """cli.main, and cli.serve for arguments that start with 'serve'."""
     with pytest.raises(NotImplementedError, match=f"Queue A, {item}\\)"):
-        cli_main.main(_TINY + args)
+        if args[0] == "serve":
+            cli_serve.main(args[1:2] + _TINY + args[2:])
+        else:
+            cli_main.main(_TINY + args)
 
 
 def test_cli_runs_on_the_card_unless_asked(monkeypatch):

@@ -134,15 +134,6 @@ def test_mean_heads_match_jax(mode):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("latent_mode", "vmf"), ("latent_mode", "vmfq")])
-def test_unported_modes_raise(field, value):
-    cfg = dict(SMALL, mean_mode="s2s2", device="cpu", decoder_mode="mlp")
-    cfg[field] = value
-    with pytest.raises(NotImplementedError, match="Queue A, A5"):
-        LieVAE(**cfg)
-
-
 def test_state_dict_from_jax_is_strict():
     model = LieVAE(mean_mode="s2s2", device="cpu", **SMALL)
     flat = _flat_jax_weights(JaxLieVAE(mean_mode="s2s2", **SMALL))
