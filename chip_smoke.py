@@ -1,8 +1,9 @@
 """Drive the PyTorch port's serving path, its training step (in float32
 and in bench.py's bfloat16 recipe), its experiment CLI (sphere-cube renders,
 the toy experiment, the Gaussian baseline), a Gaussian-latent session, the
-vMF latents, the HTTP server and the serving CLI's export on one NVIDIA GPU
-and check them.
+vMF latents, the HTTP server, the serving CLI's export, the graphed
+ahead-of-time session and the paper's regularised training on sc-pairs on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -16,7 +17,7 @@ Phases, each timed:
    with ``-Xptxas -v``, whose report of each kernel's registers, stack frame
    and spills the build keeps beside the library;
 3. K1, the chain kernel without residuals, against the plain chain on the
-   card over L in {0, 1, 3, 6, 10}, C in {1, 10, 16}, B in {1, 64, 4103},
+   card over L in {0, 1, 3, 6, 10}, C in {1, 10}, B in {1, 64, 4103},
    shared and per-sample spectra, transpose on and off; then both timed
    with CUDA events at the flagship shape (B = 64) and at B = 4096, and
    the kernel's device time taken from a CUDA graph of 20 launches;
@@ -94,7 +95,7 @@ Phases, each timed:
    and the MLP decoder from a seed): a ``vmfq``/``action`` model, five
    steps with ``kernel_impl``
    'fused' (K2) and five with 'pallas' (K5, K6), and a ``vmf``/``mlp``
-   model, five steps (no kernel), each step (the first of the last model's)
+   model, five steps (no kernel), the first step of each
    held against the exact float64 step from the card's weights, optimizer
    state and noise, as the flagship's step is held (the card's biases
    before BatchNorm to BIAS_TOL, the CPU's not); then the
@@ -110,7 +111,38 @@ Phases, each timed:
 17. ``cli.serve export``: the CLI phase's checkpoint.pt to an ``.npz``
    artifact and back into a session that decodes as the checkpoint's, and
    ``cli.serve sample`` from it on the card;
-18. a fresh interpreter with torch's default precision settings: an
+18. the graphed session: ``serve.export_aot`` of the converged flagship
+   into build/, opened as ``AotSession(path)`` with no model flags, for
+   'fused' (K1 in the decode graph) and 'pallas' (K5): its construction
+   launching the kernel exactly twice eagerly and once at capture for each
+   of the decode and reconstruct graphs and nothing else (the path's
+   count: the counts set to 0 just before it and read just after), captured
+   with cuDNN's deterministic algorithms and held against an in-process
+   ``InferenceSession`` of the same weights and seed (requests of 64 and
+   of 100 rows: decode bit for bit, encode and reconstruct within 1e-6),
+   the kernel named in a torch.profiler trace of one decode replay, and
+   held again after 200 replays of varied requests; then, at torch's
+   defaults, ms per request of 64 graphed and ungraphed in turns and the
+   device's busy share of a decode ('fused'); a ``vmfq`` model's graphed
+   session (the sampler's pick inside the graph) against its ungraphed
+   twin;
+19. ``bench_serve_load``: the graphed 'fused' session behind the HTTP
+   server, /v1/reconstruct at 1 and 4 clients, 2 s each: requests/s,
+   images/s, p50/p95 latency; replays only, no launch outside a graph;
+20. sc-pairs: 320 seeded consecutive-pose pairs rendered by the port's
+   generator into chiprun_out/;
+21. the regularised step: the flagship from the converged weights with
+   equivariance 100 and encoder continuity 3000 (the ``reg`` preset's), 64
+   pairs = 128 images, with 'fused' and 'pallas' under the 'shear' rotation
+   and 'fused' under 'gather', each held against the exact float64 step
+   (theta and both passes' noise handed over) as the flagship's step is;
+   then 20 timed and 5 profiled steps of each kernel_impl, one launch per
+   step of each kernel of the path;
+22. ``cli.main --config scpairs reg --kernel_impl pallas``, one epoch on
+   the pairs with both schedules at their full weights from the first step
+   (ramps that end at step 999, before they start), checked as the CLI
+   phase, and its four regularizer tags finite, both weights above 0;
+23. a fresh interpreter with torch's default precision settings: an
    ``InferenceSession`` decode of the flagship and one ``train_step``,
    which must run in IEEE float32 (``precision.ieee_float32``) and leave
    the settings as they found them; the flags seen inside, the cuDNN
@@ -205,10 +237,23 @@ POSE_TOL = 1e-3
 VMF_CFG = dict(encode_mode="conv", deconv_mode="deconv", degrees=6,
                rep_copies=10, conv_hidden=50, deconv_hidden=200, rgb=True,
                batch_norm=True)
+# (the first of each model's held against the exact step)
 VMF_STEPS = 5
 # HTTP requests of 64 timed (host clock, median) through the server and in
 # process
 HTTP_REPS = 20
+# the graphed session: replays of varied requests before it is held again
+AOT_REPLAYS = 200
+# bench_serve_load against the graphed session: client counts, seconds each
+LOAD_CLIENTS = (1, 4)
+LOAD_SECONDS = 2.0
+# the regularised step: the reg preset's weights, batch REG_PAIRS pairs of
+# sc-pairs renders of the port's generator (seeded poses), REG_RENDER pairs
+# rendered for it and for the scpairs CLI epoch
+REG_EQ, REG_CONT = 100.0, 3000.0
+REG_PAIRS = 64
+REG_RENDER = 320
+PAIRS_DIR = os.path.join(ROOT, "chiprun_out", "smoke_data", "sc-pairs")
 
 
 def phase(name):
@@ -841,6 +886,269 @@ def export_phase(cli_dir, flags):
                              f"|diff| {np.abs(a - b).max()}")
 
 
+def _replay_kernels(name, fn, want):
+    """The device items of one call of ``fn`` under torch.profiler (a trace
+    under build/profile/): fails unless an item's name holds ``want``."""
+    from lie_vae_tpu_torch.profile_serve import profile_request
+    items, prof = profile_request(name, fn, 1, PROFILE_DIR)
+    if not any(want in k for k in items):
+        raise AssertionError(f"{name}: no {want} among the device items of "
+                             f"one replay: {sorted(items)[:20]}")
+    return items, prof
+
+
+# the graphed flagship session's launches at construction: the decode and
+# reconstruct graphs hold the decoder's kernel (K1 or K5), each run twice
+# eagerly and captured once; nothing else launches a counted kernel
+AOT_CAPTURE_LAUNCHES = 2 * (2 + 1)
+
+
+def open_aot(art, counters, counts, key):
+    """``AotSession(art, seed=0)`` with every launch count set to 0 just
+    before and read just after: fails unless the kernel counted ``key``
+    launched exactly AOT_CAPTURE_LAUNCHES times and no other kernel did.
+    Returns the session and the counts."""
+    from lie_vae_tpu_torch.serve import AotSession
+    for obj, attr in counters:
+        setattr(obj, attr, 0)
+    sess = AotSession(art, seed=0)
+    got = counts()
+    want = {k: AOT_CAPTURE_LAUNCHES if k == key else 0 for k in got}
+    if got != want:
+        raise AssertionError(f"the graphed session's construction launched "
+                             f"{got}, not {want}")
+    return sess, got
+
+
+def aot_phase(impl, counters, counts, images, poses, timed=True):
+    """``serve.export_aot`` of the flagship's converged weights (kernel_impl
+    ``impl``) into build/ (git-ignored), opened as ``AotSession(path)`` with
+    no model flags, twice: captured with cuDNN's deterministic algorithms,
+    and at torch's defaults. The first against an in-process
+    ``InferenceSession`` of the same weights and seed (deterministic too),
+    a request of 64 and a ragged one of 100: decode bit for bit, encode
+    (the same generator draws) and reconstruct within 1e-6; the kernel of
+    the decode (K1 for 'fused', K5 for 'pallas') named in a torch.profiler
+    trace of one decode replay, with the session's replay count up by one
+    and the kernel's launch count not moved; then AOT_REPLAYS replays of
+    varied requests and a request held again (a stale buffer would show).
+    The second (with ``timed``) timed against the ungraphed session: ms
+    per request of 64, in turns (host clock, median of 20), and the
+    device's busy share of a request. Each graphed session's launches are
+    read around its construction alone (:func:`open_aot`), so the twins'
+    launches enter no count. Returns the timing session (None without
+    ``timed``), the checks' and timings' record, the replays by surface,
+    and the constructions' launches summed."""
+    from lie_vae_tpu_torch.models import flagship_model
+    from lie_vae_tpu_torch.profile_serve import profile_request
+    from lie_vae_tpu_torch.serve import (InferenceSession,
+                                         export_aot_from_torch)
+    out_dir = os.path.join(ROOT, "build", "smoke_aot")
+    os.makedirs(out_dir, exist_ok=True)
+    art = export_aot_from_torch(
+        CHECKPOINT, flagship_model("cpu", kernel_impl=impl),
+        os.path.join(out_dir, f"flagship_{impl}.npz"))
+    kernel = {"fused": "wigner_chain_fwd", "pallas": "wigner_block_fwd"}[impl]
+    key = {"fused": "launches", "pallas": "block_launches"}[impl]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        tc = time.perf_counter()
+        aot, built = open_aot(art, counters, counts, key)
+        capture_s = time.perf_counter() - tc
+        ref = InferenceSession.from_torch(
+            CHECKPOINT, flagship_model(kernel_impl=impl), batch_size=64,
+            seed=0)
+        worst = {"encode": 0.0, "reconstruct": 0.0}
+
+        def held(x, z, what):
+            got, want = aot.decode(z), ref.decode(z)
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{what}: the graphed decode differs "
+                                     f"by {np.abs(got - want).max()}")
+            ge, we = aot.encode(x), ref.encode(x)
+            gr, wr = aot.reconstruct(x), ref.reconstruct(x)
+            worst["encode"] = max(worst["encode"], *(
+                float(np.abs(ge[k] - we[k]).max()) for k in we))
+            worst["reconstruct"] = max(worst["reconstruct"],
+                                       float(np.abs(gr - wr).max()))
+            if not (worst["encode"] <= 1e-6 and worst["reconstruct"]
+                    <= 1e-6):
+                raise AssertionError(f"{what}: the graphed session against "
+                                     f"the in-process one: {worst}")
+            check_images(got, (len(z), 64, 64, 3), f"{what} decode")
+
+        ragged = np.concatenate([images, images[:36]])
+        poses100 = np.concatenate([poses, poses[:36]])
+        held(images, poses, "a request of 64")
+        held(ragged, poses100, "a ragged request of 100")
+        before, replays = counts()[key], dict(aot.replays)
+        items, _ = _replay_kernels(f"aot_decode_replay_{impl}",
+                                   lambda: aot.decode(poses), kernel)
+        if counts()[key] != before or aot.replays["decode"] \
+                != replays["decode"] + 2:
+            raise AssertionError(f"the profiled replays: launches "
+                                 f"{counts()[key] - before}, decode replays "
+                                 f"{aot.replays['decode'] - replays['decode']}")
+        in_trace = sorted(k[:60] for k in items if kernel in k)
+        # varied requests; their encodes take noise handed over, so the
+        # session's generator stays in step with the twin's
+        gen = np.random.default_rng(17)
+        varied = (lambda x, z, e: aot.decode(z),
+                  lambda x, z, e: aot.encode(x, eps=e),
+                  lambda x, z, e: aot.reconstruct(x))
+        for i in range(AOT_REPLAYS):
+            varied[i % 3](images[gen.permutation(64)],
+                          poses[gen.permutation(64)],
+                          gen.standard_normal((64, 3), np.float32))
+        held(images, poses, f"after {AOT_REPLAYS} more replays")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"   {impl!r}: {art} ({os.path.getsize(art) / 1e6:.1f} MB), "
+          f"captured in {capture_s:.2f} s; against the in-process session "
+          f"(64 and 100 rows): decode bit for bit, encode within "
+          f"{worst['encode']:.1e}, reconstruct {worst['reconstruct']:.1e}; "
+          f"in the trace of one decode replay: {in_trace} (launch count "
+          f"unmoved, replays counted); held again after {AOT_REPLAYS} "
+          f"replays of varied requests; replays {aot.replays}")
+    replayed = dict(aot.replays)
+    aot.close()
+    record = {"capture_s": capture_s, "encode_max_diff": worst["encode"],
+              "reconstruct_max_diff": worst["reconstruct"],
+              "in_replay_trace": in_trace}
+    if not timed:
+        return None, record, replayed, built
+    fast, built_fast = open_aot(art, counters, counts, key)
+    built = {k: v + built_fast[k] for k, v in built.items()}
+    live = InferenceSession.from_torch(
+        CHECKPOINT, flagship_model(kernel_impl=impl), batch_size=64,
+        seed=0).warmup()
+    reqs = {"decode": (lambda s: s.decode(poses)),
+            "encode": (lambda s: s.encode(images)),
+            "reconstruct": (lambda s: s.reconstruct(images))}
+    ms = {}
+    for name, fn in reqs.items():
+        for sess in (fast, live):
+            fn(sess)
+        times = {"graphed": [], "ungraphed": []}
+        for i in range(2 * HTTP_REPS):
+            # in turns: graphed, ungraphed, ungraphed, graphed, ...
+            which = "graphed" if i % 4 in (0, 3) else "ungraphed"
+            t0 = time.perf_counter()
+            fn(fast if which == "graphed" else live)
+            times[which].append(1e3 * (time.perf_counter() - t0))
+        ms[name] = {k: statistics.median(v) for k, v in times.items()}
+    prof = {}
+    for which, sess in (("graphed", fast), ("ungraphed", live)):
+        _, prof[which] = profile_request(
+            f"aot_{which}_decode_{impl}", lambda: sess.decode(poses),
+            PROFILE_STEPS, PROFILE_DIR)
+    replayed = {k: replayed[k] + fast.replays[k] for k in replayed}
+    print("   ms per request of 64 (host clock, median of "
+          f"{HTTP_REPS}, in turns), graphed / ungraphed: " + "; ".join(
+              f"{k} {v['graphed']:.3f} / {v['ungraphed']:.3f}"
+              for k, v in ms.items())
+          + "; a decode's device busy share: " + ", ".join(
+              f"{k} {v['busy_ms']:.3f} of {v['host_ms']:.3f} ms "
+              f"({100 * v['busy_ms'] / v['host_ms']:.1f}%), "
+              f"{v['events']:.0f} device events" for k, v in prof.items()))
+    return fast, dict(record, ms=ms, decode_profiled=prof), replayed, built
+
+
+def aot_vmfq_check(vcfg, vstate, images):
+    """The vmfq model's graphed session (the sampler's proposals drawn
+    outside the graph, the pick against kappa inside it) against its
+    ungraphed twin of the same seed: encode twice (the generators advance
+    alike) and with a given accepted draw, decode, reconstruct, within
+    1e-6 (cuDNN's deterministic algorithms)."""
+    from lie_vae_tpu_torch import compat
+    from lie_vae_tpu_torch.models import LieVAE
+    from lie_vae_tpu_torch.serve import (AotSession, InferenceSession,
+                                         export_aot_from_torch)
+    out_dir = os.path.join(ROOT, "build", "smoke_aot")
+    os.makedirs(out_dir, exist_ok=True)
+    ref_pt = compat.save_torch(os.path.join(out_dir, "vmfq.pt"), vstate)
+    art = export_aot_from_torch(ref_pt, LieVAE(**dict(vcfg, device="cpu")),
+                                os.path.join(out_dir, "vmfq_aot.npz"))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        aot = AotSession(art, seed=5)
+        ref = InferenceSession(LieVAE(**vcfg), vstate, batch_size=64, seed=5)
+        gen = torch.Generator().manual_seed(19)
+        g = torch.randn((2, 3, 64), generator=gen)
+        x2, y2 = (g * g).sum(1)
+        pair = ((x2 / (x2 + y2)).numpy(),
+                torch.randn((64, 4), generator=gen).numpy())
+        diffs = []
+        for kw in ({}, {}, {"eps": pair}):
+            a, b = aot.encode(images, **kw), ref.encode(images, **kw)
+            diffs += [float(np.abs(a[k] - b[k]).max()) for k in b]
+        diffs += [float(np.abs(aot.decode(b["pose"])
+                               - ref.decode(b["pose"])).max()),
+                  float(np.abs(aot.reconstruct(images)
+                               - ref.reconstruct(images)).max())]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"   vmfq graphed session vs its ungraphed twin: max |diff| "
+          f"{max(diffs):.1e} over encode (drawn twice, then a given accepted "
+          f"draw), decode and reconstruct; replays {aot.replays}")
+    if not max(diffs) <= 1e-6:
+        raise AssertionError(f"the graphed vmfq session differs: {diffs}")
+    aot.close()
+    return max(diffs)
+
+
+def reg_step(weights, batch, noise, impl, rotate, exact=None, cpu=None):
+    """One regularised flagship step (sigma clamp pi * 10 / 2, lr 1e-3,
+    clip 1e-5, beta 1, equivariance REG_EQ and encoder continuity REG_CONT,
+    the ``reg`` preset's weights, on the pairs ``batch``) from ``weights``
+    with ``noise`` = (posterior noise, theta, the equivariance pass's noise)
+    on the card with ``kernel_impl`` ``impl``, held against the exact
+    float64 step on the CPU (``exact``, computed here when None) by
+    :func:`check_against_exact`, with the CPU's float32 step (``cpu``)
+    arbitrating. Returns the card's model, optimizer and metrics, the worst
+    shares, and the exact and CPU steps for reuse."""
+    from lie_vae_tpu_torch.models import flagship_model
+    from lie_vae_tpu_torch.train import make_optimizer, train_step
+    eps, theta, eq_eps = noise
+
+    def run(device, dtype):
+        model = flagship_model(device, sigma_clamp=SIGMA_CLAMP,
+                               kernel_impl=impl)
+        model.load_state_dict(weights, strict=True)
+        model.to(dtype)
+        opt = make_optimizer(model.named_parameters(), lr=1e-3,
+                             clip_grads=1e-5)
+        met = train_step(model, opt, torch.as_tensor(batch), 1.0,
+                         eps=eps.to(dtype), equivariance_lamb=REG_EQ,
+                         encoder_continuity_lamb=REG_CONT,
+                         equivariance_rotate=rotate, theta=theta,
+                         eq_eps=eq_eps.to(dtype))
+        return model, opt, met
+
+    exact = exact or run("cpu", torch.float64)
+    cpu = cpu or run("cpu", torch.float32)
+    mg, opt_g, met_g = run("cuda", torch.float32)
+    worst, bias = check_against_exact(mg, met_g, cpu[0], cpu[2], exact[0],
+                                      exact[2])
+    for k in ("equivariance", "encoder_continuity"):
+        got, want = float(met_g[k]), float(exact[2][k])
+        ref = abs(float(cpu[2][k]) - want)
+        if not abs(got - want) <= LOSS_TOL * abs(want) + ARBITER * ref:
+            raise AssertionError(f"{k}: {got} on the card, {want} exact")
+    print(f"   {impl!r}, {rotate!r}: loss {float(met_g['loss']):.4f} on the "
+          f"card, {float(exact[2]['loss']):.4f} exact (equivariance "
+          f"{float(exact[2]['equivariance']):.4f}, continuity "
+          f"{float(exact[2]['encoder_continuity']):.5f}); against the exact "
+          "step: " + "; ".join(
+              f"{k}: card {v[1]:.3e}, CPU float32 {v[2]:.3e}, worst "
+              f"{v[0]:.3f} of the allowance" for k, v in worst.items())
+          + f"; the biases before BatchNorm {bias[0]:.3e} (card), "
+          f"{bias[1]:.3e} (CPU) of their weight's gradient")
+    return mg, opt_g, met_g, worst, exact, cpu
+
+
 # run by precision_subprocess in a fresh interpreter: torch's own defaults
 _PRECISION_SCRIPT = r"""
 import json, math, sys
@@ -1027,7 +1335,7 @@ def main():
     for L in (0, 1, 3, 6, 10):
         S = (L + 1) ** 2
         worst_l, n = 0.0, 0
-        for C in (1, 10, 16):
+        for C in (1, 10):
             for B in (1, 64, 4103):
                 angles = group_matrix_to_eazyz(random_group_matrices(
                     B, gen, device="cpu").to(dev)).contiguous()
@@ -1071,7 +1379,7 @@ def main():
     t0 = phase("K2: chain with residuals and its backward kernel vs "
                "autograd of the plain chain on the card")
     k2_err = {"fwd": 0.0, "bwd": 0.0}
-    cases = [(L, C, B) for L in (0, 1, 3, 6, 10) for C in (1, 10, 16)
+    cases = [(L, C, B) for L in (0, 1, 3, 6, 10) for C in (1, 10)
              for B in (1, 64, 4103)] + [(6, 100, 5), (10, 40, 64)]
     per_l = {}
     for L, C, B in cases:
@@ -1327,7 +1635,7 @@ def main():
     for L in (0, 1, 3, 6, 10):
         S = (L + 1) ** 2
         n, worst_f, worst_g = 0, 0.0, 0.0
-        for C in (1, 10, 16):
+        for C in (1, 10):
             for B in (1, 64, 4103):
                 angles = group_matrix_to_eazyz(random_group_matrices(
                     B, gen, device="cpu").to(dev)).contiguous()
@@ -1840,8 +2148,8 @@ def main():
 
     t0 = phase(f"the vMF latents at the flagship's widths: a vmfq/action "
                f"model, {VMF_STEPS} steps 'fused' and {VMF_STEPS} 'pallas', "
-               f"a vmf/mlp model, {VMF_STEPS} steps, each step held against "
-               "the CPU's")
+               f"a vmf/mlp model, {VMF_STEPS} steps, the first of each "
+               "held against the CPU's")
     vcfg = dict(VMF_CFG, latent_mode="vmfq", decoder_mode="action",
                 kernel_impl="fused")
 
@@ -1874,10 +2182,11 @@ def main():
         tv = time.perf_counter()
         vmodel, vopt, vmf_paths[impl], vmf_worst[impl], vloss = vmf_steps(
             dict(vcfg, kernel_impl=impl), vweights, batch, x_dev, 9,
-            counters, want)
+            counters, want, checked=1)
         print(f"   vmfq/action, {impl!r}: {VMF_STEPS} steps, loss {vloss:.4f}"
               f" after them, launches {vmf_paths[impl]} (K1, K2 forward, K2 "
-              f"backward, K3, K4, K5, K6); each against the exact step: "
+              f"backward, K3, K4, K5, K6); the first against the exact "
+              "step: "
               + shares(vmf_worst[impl])
               + f"; {time.perf_counter() - tv:.2f} s")
         if impl == "fused":
@@ -2002,6 +2311,164 @@ def main():
                            "pallas"])
     done(t0)
 
+    t0 = phase("the graphed session: serve.export_aot of the flagship, "
+               "AotSession(path) with no model flags, 'fused' (K1 in the "
+               "decode graph) and 'pallas' (K5), and a vmfq model's")
+    aot_poses = random_group_matrices(
+        64, torch.Generator().manual_seed(20), device="cpu").numpy()
+    aot_runs, aot_replays, aot_launches = {}, {}, dict.fromkeys(counts(), 0)
+    for impl in ("fused", "pallas"):
+        aot_sess, aot_runs[impl], aot_replays[impl], built = aot_phase(
+            impl, counters, counts, batch, aot_poses, timed=impl == "fused")
+        aot_launches = {k: v + built[k] for k, v in aot_launches.items()}
+        if impl == "fused":
+            aot_fused = aot_sess
+    aot_vmfq = aot_vmfq_check(vcfg, vstate, batch)
+    print(f"   launches of the graphed flagship sessions' constructions "
+          f"({AOT_CAPTURE_LAUNCHES} a session: two eager runs and a capture "
+          f"of the decode and reconstruct graphs): {aot_launches}; graph "
+          f"replays {aot_replays}")
+    done(t0)
+
+    t0 = phase(f"bench_serve_load against the graphed session ('fused') "
+               f"behind the HTTP server: /v1/reconstruct (both graphs), "
+               f"{LOAD_CLIENTS} clients, {LOAD_SECONDS} s each, requests of "
+               "64")
+    from lie_vae_tpu_torch import bench_serve_load
+    for obj, attr in counters:
+        setattr(obj, attr, 0)
+    load_before = dict(aot_fused.replays)
+    load_rows = bench_serve_load.run(
+        aot_fused, clients=LOAD_CLIENTS, routes=("reconstruct",),
+        duration=LOAD_SECONDS, req_batch=64)
+    load_launches = counts()
+    load_replays = {k: aot_fused.replays[k] - load_before[k]
+                    for k in load_before}
+    aot_fused.close()
+    if any(load_launches.values()) or not (
+            load_replays["reconstruct"] and load_replays["encode"] == 0):
+        raise AssertionError(f"the load run launched {load_launches} and "
+                             f"replayed {load_replays}")
+    print(f"   graph replays in the run {load_replays}, no kernel launched "
+          "outside a graph")
+    done(t0)
+
+    t0 = phase(f"sc-pairs renders: {REG_RENDER} seeded consecutive-pose "
+               "pairs with the port's generator")
+    tr0 = time.perf_counter()
+    pair_images = gen_spherecube.generate(REG_RENDER, PAIRS_DIR, pairs=True)
+    pairs_s = time.perf_counter() - tr0
+    if pair_images.shape != (2 * REG_RENDER, 64, 64, 3):
+        raise AssertionError(f"pair renders {pair_images.shape}")
+    print(f"   {2 * REG_RENDER} renders in {pairs_s:.2f} s -> {PAIRS_DIR}")
+    done(t0)
+
+    from lie_vae_tpu_torch.data import ScPairsDataset
+    pbatch = ScPairsDataset.prep_batch(ScPairsDataset(PAIRS_DIR).gather(
+        np.arange(REG_PAIRS)))[-1]
+    px_dev = torch.as_tensor(pbatch, device=dev)
+    n_rows = pbatch.shape[0]
+    reg_gen = torch.Generator().manual_seed(21)
+    reg_noise = (torch.randn((1, n_rows, 3), generator=reg_gen),
+                 torch.rand((n_rows,), generator=reg_gen) * (2 * math.pi),
+                 torch.randn((1, n_rows, 3), generator=reg_gen))
+    reg_runs, reg_worst = {}, {}
+    reg_exact = reg_cpu = None
+    for obj, attr in counters:
+        setattr(obj, attr, 0)
+    reg_total = dict.fromkeys(counts(), 0)
+    for impl, rotate, want in (("fused", "shear", [0, 1, 1, 1, 1, 0, 0]),
+                               ("pallas", "shear", [0, 0, 0, 1, 1, 1, 1]),
+                               ("fused", "gather", [0, 1, 1, 1, 1, 0, 0])):
+        t0 = phase(f"the regularised step, kernel_impl={impl!r}, rotation "
+                   f"{rotate!r}: the flagship from the converged weights, "
+                   f"equivariance {REG_EQ:g}, encoder continuity "
+                   f"{REG_CONT:g}, {REG_PAIRS} pairs = {n_rows} images, held "
+                   "against the exact float64 step")
+        before = counts()
+        mg, opt_g, _, reg_worst[f"{impl}_{rotate}"], ex, cp = reg_step(
+            weights, pbatch, reg_noise, impl, rotate,
+            *((reg_exact, reg_cpu) if rotate == "shear" else (None, None)))
+        if rotate == "shear":
+            reg_exact, reg_cpu = ex, cp
+        delta = [counts()[k] - before[k] for k in before]
+        if delta != want:
+            raise AssertionError(f"launches in the card's regularised step "
+                                 f"(K1, K2 forward, K2 backward, K3, K4, K5, "
+                                 f"K6): {delta}, expected {want}")
+        if rotate == "gather":
+            reg_total = {k: reg_total[k] + d for k, d in zip(before, delta)}
+            done(t0)
+            continue
+        noise = torch.Generator().manual_seed(22)
+
+        def reg_train_step():
+            return train_step(mg, opt_g, px_dev, 1.0, generator=noise,
+                              equivariance_lamb=REG_EQ,
+                              encoder_continuity_lamb=REG_CONT)
+
+        step_ms, losses = [], []
+        for _ in range(TRAIN_STEPS):
+            b4 = counts()
+            ts = time.perf_counter()
+            met = reg_train_step()
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - ts))
+            d = [counts()[k] - b4[k] for k in b4]
+            if d != want:
+                raise AssertionError(f"launches in one regularised step: "
+                                     f"{d}, expected {want}")
+            losses.append(met["loss"])
+        losses = torch.stack(losses).cpu()
+        if not torch.isfinite(losses).all():
+            raise AssertionError(f"non-finite losses {losses.tolist()}")
+        _, rprof = profile_request(
+            f"train_step_reg_{impl}", reg_train_step, PROFILE_STEPS,
+            PROFILE_DIR, unit=f"step of {n_rows}",
+            watch=("wigner", "so3_density"))
+        reg_runs[impl] = {"ms": statistics.median(step_ms[2:]),
+                          "first_ms": step_ms[:2],
+                          "loss": [float(losses[0]), float(losses[-1])],
+                          "profiled": rprof}
+        after = counts()
+        reg_total = {k: reg_total[k] + after[k] - before[k] for k in after}
+        print(f"   {TRAIN_STEPS} steps: losses {losses[0]:.4f} .. "
+              f"{losses[-1]:.4f}, launches per step {want}; ms per step "
+              f"(host clock, median of steps 3-{TRAIN_STEPS}) "
+              f"{reg_runs[impl]['ms']:.3f}, first two {step_ms[0]:.3f}, "
+              f"{step_ms[1]:.3f}; profiled: device busy "
+              f"{rprof['busy_ms']:.3f} ms, {rprof['events']:.0f} device "
+              "events per step")
+        done(t0)
+    reg_launches = reg_total
+
+    t0 = phase("the paper's regularised CLI: python -m "
+               "lie_vae_tpu_torch.cli.main --config scpairs reg "
+               "--kernel_impl pallas, one epoch on the pair renders, both "
+               "regularizers at the preset's full weights")
+    scp_dir = os.path.join(CLI_DIR, "scpairs")
+    # LinearSchedule(0, v, 1000, 999) holds v up to step 999: the short
+    # epoch trains with both losses weighted (the presets' ramps start at
+    # step 1000)
+    _, scp_epoch_s, scp_launches = cli_run(
+        ["--config", "scpairs", "reg", "--kernel_impl", "pallas",
+         "--data_dir", PAIRS_DIR, "--epochs", "1",
+         "--equivariance_end_it", "999",
+         "--encoder_continuity_end_it", "999"], scp_dir,
+        block_keys + dens_keys, fused_keys, "block_launches")
+    with open(os.path.join(scp_dir, "logs", "metrics.jsonl")) as f:
+        scp_tags = {r["tag"]: r["value"] for r in map(json.loads, f)}
+    reg_tags = {k: scp_tags.get(k) for k in (
+        "equivariance", "equivariance_lamb", "encoder_continuity",
+        "encoder_continuity_lamb")}
+    print(f"   regularizer tags: {reg_tags}")
+    if not (all(v is not None and math.isfinite(v)
+                for v in reg_tags.values())
+            and reg_tags["equivariance_lamb"] == REG_EQ
+            and reg_tags["encoder_continuity_lamb"] == REG_CONT):
+        raise AssertionError(f"the regularizer tags: {reg_tags}")
+    done(t0)
+
     t0 = phase("precision in a fresh interpreter with torch's defaults: "
                "a session's decode and one train_step")
     c5 = precision_subprocess(batch, cpu, float(exact[2]["loss"]))
@@ -2084,6 +2551,18 @@ def main():
     paths["vmfq_serve"] = vmfq_serve
     paths["vmfq_cli"] = vmfq_cli_launches
     paths["http"] = http_launches
+    paths["aot_serve"] = aot_launches
+    paths["aot_http"] = load_launches
+    paths["reg_train"] = reg_launches
+    paths["scpairs_cli"] = scp_launches
+    # graph replays run the kernels captured in them without their wrapper:
+    # counted apart, per graph holding the kernel
+    graph_replays = {
+        "launches": sum(aot_replays["fused"][k] for k in ("decode",
+                                                          "reconstruct"))
+        + load_replays["reconstruct"],
+        "block_launches": sum(aot_replays["pallas"][k]
+                              for k in ("decode", "reconstruct"))}
     for entry in kernels:
         key = {"wigner_chain_fwd": "launches",
                "wigner_chain_fwd_res": "launches_residuals",
@@ -2095,6 +2574,8 @@ def main():
         entry["launches_by_path"] = {p: c[key] for p, c in paths.items()}
         entry["launches_by_path"]["toy_generate"] = (
             toy_gen["k1"] if key == "launches" else 0)
+        entry["launches_by_path"]["aot_graph_replays"] = graph_replays.get(
+            key, 0)
         if not entry["launches"] or not any(
                 entry["launches_by_path"].values()):
             raise AssertionError(f"{entry['name']} was launched on no path: "
@@ -2124,6 +2605,11 @@ def main():
               "vmfq_cli_epoch_s": vmfq_cli_s,
               "http_request_ms": http_ms,
               "precision_fresh_process": c5,
+              "aot": aot_runs, "aot_replays": aot_replays,
+              "aot_vmfq_max_diff": aot_vmfq, "aot_load": load_rows,
+              "aot_load_replays": load_replays, "pairs_render_s": pairs_s,
+              "reg_step": reg_runs, "reg_step_worst_share": reg_worst,
+              "scpairs_cli_epoch_s": scp_epoch_s, "scpairs_tags": reg_tags,
               "total_s": time.perf_counter() - t_start}
     print(json.dumps(record))
     print(card)

@@ -14,7 +14,13 @@ rotating it on the card; the toy encoder, the SO(3) latent with the S2xS2
 mean, the action decoder without a deconv head). ``--dataset spherecube
 --data_dir DIR`` trains the flagship shape (conv width 50, deconv width
 200, BatchNorm) on RGB sphere-cube renders (rendered by
-``python -m lie_vae_tpu_torch.cli.gen_spherecube``). Every model mode and
+``python -m lie_vae_tpu_torch.cli.gen_spherecube --singles``); ``--dataset
+sc-pairs`` on their consecutive-pose pairs (the generator's default, 32
+pairs = 64 images a batch), which the paper's regularizers take:
+``--equivariance`` and ``--encoder_continuity`` (each a ``LinearSchedule``
+from 0 at step 1000 to its value at ``--*_end_it``), ``--equivariance_rotate
+shear|gather``, and the presets ``--config scpairs reg`` (the paper's
+regularized configuration), ``contreg``. Every model mode and
 compute dtype of the JAX CLI is passed on to ``LieVAE``. Port flags:
 ``--device`` (default ``cuda``); ``--kernel_impl`` defaults to ``fused``
 (the Wigner chain kernels and the density kernels on the card; ``pallas``
@@ -24,9 +30,8 @@ ops). ``--profile_dir`` writes a ``torch.profiler`` trace. The checkpoint is
 ``serve.InferenceSession.from_checkpoint`` serves. The run's device work
 is IEEE float32 (``precision.ieee_float32``: no TF32).
 
-Modes that are not ported raise ``NotImplementedError`` naming their
-ROADMAP.md item: sc-pairs and the regularizers of ``reg.yaml``,
-``contreg.yaml`` and ``scpairs.yaml`` (Queue A, A6), the mesh flags (A9).
+The mesh flags are not ported: they raise ``NotImplementedError`` naming
+their ROADMAP.md item (Queue A, A9).
 """
 import argparse
 import math
@@ -34,7 +39,8 @@ import os
 
 import torch
 
-from lie_vae_tpu_torch.data import SphereCubeDataset, ToyDataset, random_split
+from lie_vae_tpu_torch.data import (ScPairsDataset, SphereCubeDataset,
+                                    ToyDataset, random_split)
 from lie_vae_tpu_torch.models import LieVAE
 from lie_vae_tpu_torch.precision import ieee_float32
 from lie_vae_tpu_torch.train import (
@@ -52,22 +58,22 @@ def _not_ported(what, item):
 def check_ported(args):
     """Raise ``NotImplementedError`` naming the ROADMAP.md item of the
     first mode in ``args`` that the port does not run."""
-    if args.dataset == "sc-pairs":
-        _not_ported("--dataset sc-pairs", "A6")
-    if args.equivariance is not None or args.encoder_continuity is not None:
-        _not_ported("the equivariance and encoder-continuity losses", "A6")
     if args.mesh_data > 1 or args.mesh_model > 1:
         _not_ported("--mesh_data / --mesh_model", "A9")
 
 
 def build_dataset(args):
-    """The dataset, the CLI's batch size (64) and, with
-    ``--fixed_spectrum``, the toy spectrum the decoder keeps fixed."""
+    """The dataset, the CLI's batch size (64 items, 32 for sc-pairs, whose
+    items are pairs) and, with ``--fixed_spectrum``, the toy spectrum the
+    decoder keeps fixed."""
     item_rep = None
+    batch_size = 64
+    directory = {"directory": args.data_dir} if args.data_dir else {}
     if args.dataset == "spherecube":
-        dataset = SphereCubeDataset(subsample=args.subsample,
-                                    **({"directory": args.data_dir}
-                                       if args.data_dir else {}))
+        dataset = SphereCubeDataset(subsample=args.subsample, **directory)
+    elif args.dataset == "sc-pairs":
+        dataset = ScPairsDataset(subsample=args.subsample, **directory)
+        batch_size = 32
     elif args.dataset == "toy":
         if not os.path.exists(args.toy_path):
             print(f"Generating toy dataset at {args.toy_path} ...")
@@ -88,7 +94,7 @@ def build_dataset(args):
         raise ValueError("Wrong dataset")
     if len(dataset) == 0:
         raise RuntimeError("Dataset empty")
-    return dataset, 64, item_rep
+    return dataset, batch_size, item_rep
 
 
 def sigma_clamp_value(args):
@@ -158,6 +164,12 @@ def main(argv=None):
     print("Dataset splits: train={}, valid={}, test={}".format(
         len(train_dataset), len(valid_dataset), len(test_dataset)))
 
+    equivariance = (LinearSchedule(0, args.equivariance, 1000,
+                                   args.equivariance_end_it)
+                    if args.equivariance is not None else None)
+    encoder_continuity = (LinearSchedule(0, args.encoder_continuity, 1000,
+                                         args.encoder_continuity_end_it)
+                          if args.encoder_continuity is not None else None)
     experiment = UnsupervisedExperiment(
         model=model,
         train_dataset=train_dataset,
@@ -170,6 +182,8 @@ def main(argv=None):
         clip_grads=args.clip_grads,
         selective_clip=args.selective_clip,
         batch_size=batch_size,
+        equivariance_lamb=equivariance,
+        encoder_continuity_lamb=encoder_continuity,
         control=args.control,
         control_p=args.control_p,
         log=MetricWriter(args.log_dir),
@@ -235,7 +249,7 @@ def parse_args(argv=None):
     # main.py:146-210), but --device, and --kernel_impl's default
     parser = argparse.ArgumentParser("VAE experiment")
     parser.add_argument("--dataset", default="toy",
-                        help="[toy, spherecube] (sc-pairs: not ported)")
+                        help="[toy, spherecube, sc-pairs]")
     parser.add_argument("--decoder_mode", default="action",
                         help="[action, mlp]")
     parser.add_argument("--latent_mode", default="so3",

@@ -10,7 +10,9 @@ configuration. Device work runs in IEEE float32 (no TF32).
   export      the port's checkpoint.pt, or a reference state_dict
               (--torch), -> one .npz artifact in the JAX package's format
               (which its serve.load_npz reads); or the checkpoint ->
-              a reference state_dict (--to_torch)
+              a reference state_dict (--to_torch); with --aot
+              [--aot_batch N] an ahead-of-time artifact that also holds
+              the model's configuration (serve.export_aot)
   sample      decode n poses of the prior -> .npz (and a .png grid when
               PIL is there)
   trajectory  decode a latent geodesic between two encoded images or two
@@ -21,16 +23,21 @@ configuration. Device work runs in IEEE float32 (no TF32).
 
 A session comes from ``--artifact`` (an .npz of either package),
 ``--torch`` (a reference state_dict), ``--checkpoint`` (the port's
-checkpoint.pt) or ``--name`` (``outputs/<name>/checkpoint.pt``). Examples::
+checkpoint.pt) or ``--name`` (``outputs/<name>/checkpoint.pt``); or, with
+no model flags (``--device`` alone), from ``--aot`` (an ``export --aot``
+artifact of the port, served by ``serve.AotSession``: on the card each
+fixed-batch surface replays one CUDA graph). Examples::
 
   python -m lie_vae_tpu_torch.cli.serve export \\
       --checkpoint out/checkpoint.pt --dataset spherecube --out artifact.npz
   python -m lie_vae_tpu_torch.cli.serve http --artifact artifact.npz \\
       --dataset spherecube --port 8310
+  python -m lie_vae_tpu_torch.cli.serve export --aot \\
+      --checkpoint out/checkpoint.pt --dataset spherecube
+  python -m lie_vae_tpu_torch.cli.serve http --aot out/artifact_aot.npz
 
-Not ported: ``--aot``/``--aot_batch`` (ROADMAP.md, Queue A, A8b: a
-CUDA-graphed session stands for the JAX package's ahead-of-time artifact)
-and ``--data_devices`` (A9).
+Not ported: ``--data_devices`` and ``--aot_data_devices`` (ROADMAP.md,
+Queue A, A9: a mesh).
 """
 import argparse
 import json
@@ -90,17 +97,23 @@ def _model_args(rest):
 
 def _session(opts, rest):
     """An InferenceSession from --artifact / --torch / --checkpoint /
-    --name and the model flags ``rest``."""
-    from lie_vae_tpu_torch.serve import InferenceSession
+    --name and the model flags ``rest``, or an AotSession from --aot and
+    nothing but ``--device``."""
+    from lie_vae_tpu_torch.serve import AotSession, InferenceSession
 
-    if opts.aot:
-        _not_ported("--aot (an ahead-of-time serving artifact)", "A8b")
     if opts.data_devices:
         _not_ported("--data_devices", "A9")
+    if opts.aot:
+        p = argparse.ArgumentParser("--aot", allow_abbrev=False)
+        p.add_argument("--device", default="cuda")
+        dev, extra = p.parse_known_args(rest)
+        if extra:
+            raise SystemExit(f"--aot takes no model flags (the artifact "
+                             f"holds the model): {extra}")
+        _check_device(dev.device)
+        return AotSession(opts.aot, seed=opts.seed, device=dev.device)
     args = _model_args(rest)
-    if args.device.startswith("cuda") and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA card is available (pass "
-                         "--device cpu to run on the CPU)")
+    _check_device(args.device)
     model = _build_model(args)
     kw = dict(batch_size=opts.batch_size, seed=opts.seed, device=args.device)
     if opts.artifact:
@@ -114,10 +127,18 @@ def _session(opts, rest):
     return InferenceSession.from_checkpoint(path, model, **kw)
 
 
+def _check_device(device):
+    if device.startswith("cuda") and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA card is available (pass "
+                         "--device cpu to run on the CPU)")
+
+
 def _add_session_flags(p):
     p.add_argument("--artifact", help=".npz deployment artifact (export, "
                                       "or the JAX package's)")
-    p.add_argument("--aot", help="not ported (ROADMAP.md, Queue A, A8b)")
+    p.add_argument("--aot", help="the port's ahead-of-time artifact (export "
+                                 "--aot): served with no model flags, each "
+                                 "surface a CUDA graph on the card")
     p.add_argument("--checkpoint", help="the port's checkpoint.pt")
     p.add_argument("--torch", help="reference PyTorch checkpoint "
                                    "(state_dict) to serve")
@@ -152,7 +173,9 @@ def _save_png_grid(images, path):
 
 def cmd_export(argv):
     from lie_vae_tpu_torch import compat
-    from lie_vae_tpu_torch.serve import export_npz, export_npz_from_torch
+    from lie_vae_tpu_torch.serve import (export_aot, export_aot_from_torch,
+                                         export_npz,
+                                         export_npz_from_torch)
     from lie_vae_tpu_torch.train.checkpoint import load_checkpoint
 
     p = argparse.ArgumentParser("serve export", allow_abbrev=False)
@@ -165,19 +188,30 @@ def cmd_export(argv):
                         "state_dict instead (loadable by the reference "
                         "with strict=True)")
     p.add_argument("--aot", action="store_true",
-                   help="not ported (ROADMAP.md, Queue A, A8b)")
-    p.add_argument("--aot_batch", type=int, default=None,
-                   help="not ported (ROADMAP.md, Queue A, A8b)")
-    p.add_argument("--aot_data_devices", type=int, default=None,
-                   help="not ported (ROADMAP.md, Queue A, A8b)")
-    p.add_argument("--out", help="output .npz (default <run>/artifact.npz)")
+                   help="an ahead-of-time artifact: the weights and the "
+                        "model's configuration, served by --aot with no "
+                        "model flags")
+    p.add_argument("--aot_batch", type=int, default=64,
+                   help="the fixed batch of the AOT session's graphs")
+    p.add_argument("--aot_data_devices", type=int, default=0,
+                   help="not ported (ROADMAP.md, Queue A, A9)")
+    p.add_argument("--out", help="output .npz (default <run>/artifact.npz, "
+                                 "or artifact_aot.npz with --aot)")
     opts, rest = p.parse_known_args(argv)
-    if opts.aot or opts.aot_batch is not None \
-            or opts.aot_data_devices is not None:
-        _not_ported("--aot (an ahead-of-time serving artifact)", "A8b")
+    if opts.aot_data_devices:
+        _not_ported("--aot_data_devices (AOT programs over a mesh)", "A9")
     # the model only names the JAX paths: no device work
     model = _build_model(_model_args(rest), device="cpu")
-    if opts.torch:
+    if opts.aot:
+        src = opts.torch or opts.checkpoint or (opts.name and os.path.join(
+            "outputs", opts.name, "checkpoint.pt"))
+        if not src:
+            raise SystemExit("pass --name, --checkpoint or --torch")
+        out = opts.out or os.path.join(os.path.dirname(src),
+                                       "artifact_aot.npz")
+        export = export_aot_from_torch if opts.torch else export_aot
+        export(src, model, out, batch_size=opts.aot_batch)
+    elif opts.torch:
         out = opts.out or os.path.splitext(opts.torch)[0] + ".npz"
         export_npz_from_torch(opts.torch, model, out)
     else:
@@ -258,7 +292,9 @@ def cmd_trajectory(argv):
 def _device_ms(sess, x, iters):
     """Device ms per batch of the session's encode and reconstruct on
     inputs already on the card, by CUDA events around ``iters`` calls
-    (fixed noise on the card: no host work between them)."""
+    (fixed noise on the card: no host work between them); for an
+    AotSession, ``iters`` replays of its graphs."""
+    from lie_vae_tpu_torch.serve import AotSession
     xb = torch.as_tensor(x, device=sess.device)
     b, dims = xb.shape[0], sess.model.noise_dims
     if dims is None:
@@ -269,9 +305,13 @@ def _device_ms(sess, x, iters):
     else:
         eps = (torch.zeros((b, dims), device=sess.device),)
     out = {}
+    fns = (("encode", lambda: sess._encode(xb, *eps)),
+           ("reconstruct", lambda: sess._recon(xb)))
+    if isinstance(sess, AotSession):
+        fns = tuple((name, lambda name=name: sess._run(name))
+                    for name, _ in fns)
     with torch.inference_mode(), ieee_float32():
-        for name, fn in (("encode", lambda: sess._encode(xb, *eps)),
-                         ("reconstruct", lambda: sess._recon(xb))):
+        for name, fn in fns:
             fn()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)

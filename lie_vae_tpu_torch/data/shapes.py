@@ -1,14 +1,16 @@
 """Sphere-cube image datasets as the port's generator writes them.
 
-Counterpart of ``ShapeDataset`` and ``SphereCubeDataset`` in the JAX
-package's ``data/shapes.py``. The JAX datasets read a directory of PNG
+Counterpart of ``ShapeDataset``, ``SphereCubeDataset`` and
+``ScPairsDataset`` in the JAX package's ``data/shapes.py``. The JAX datasets read a directory of PNG
 files named by their pose quaternion; the port's read what
 ``cli/gen_spherecube.py`` writes, so that no image library is needed:
 
 - ``images.npy``: uint8 (N, 64, 64, 3), each image quantised as the JAX
   generator writes its PNGs, ``(img * 255).astype(np.uint8)``;
-- ``_poses.npz``: the pose manifest (``r`` (N, 1, 3, 3), ``q`` (N, 1, 4),
-  ``meta``, ``step_size``, ``style``), as the JAX generator writes it.
+- ``_poses.npz``: the pose manifest (``r`` (N, P, 3, 3), ``q`` (N, P, 4),
+  ``meta``, ``step_size``, ``style``), as the JAX generator writes it: P = 1
+  for single poses, P = 2 for the consecutive-pose pairs of sc-pairs, whose
+  images are rows (2i, 2i + 1) of ``images.npy``.
 
 Item i is the JAX dataset's item i: its files sort in pose order. The pose
 label is the quaternion read back at the 4 decimals of the JAX file name,
@@ -53,11 +55,7 @@ class ShapeDataset:
                 f"{directory} --singles")
         images = np.load(path)
         with np.load(os.path.join(directory, POSES)) as f:
-            q = f["q"]
-        if q.shape[1] != 1:
-            raise NotImplementedError(
-                f"{directory} holds pose pairs (sc-pairs), which the port "
-                "does not load yet (ROADMAP.md, Queue A, A6)")
+            q = f["q"].reshape(-1, 4)
         if images.dtype != np.uint8 or images.ndim != 4 \
                 or images.shape[0] != q.shape[0]:
             raise ValueError(f"{path}: expected uint8 (N, H, W, 3) for "
@@ -67,7 +65,7 @@ class ShapeDataset:
             images = np.round((images.astype(np.float32) / 255.0).mean(-1)
                               * 255.0).astype(np.uint8)[..., None]
         self.images = images
-        self.poses = pose_labels(q[:, 0])
+        self.poses = pose_labels(q)
         self.indices = np.arange(len(images))
         if subsample < 1:
             # identical seed semantics to datasets.py:33-37
@@ -105,3 +103,43 @@ class SphereCubeDataset(ShapeDataset):
 
     def __init__(self, directory="data/spherecube", subsample=1.0):
         super().__init__(directory, subsample=subsample)
+
+
+class ScPairsDataset(ShapeDataset):
+    """Consecutive-pose pairs: item i is images (2i, 2i + 1) stacked on a
+    pair axis; ``prep_batch`` flattens the pairs into the batch. Reference:
+    datasets.py:95-127. ``subsample`` keeps the first fraction of a numpy
+    seed-0 permutation of the pairs, numpy's global state restored."""
+    rgb = True
+    single_id = True
+
+    def __init__(self, directory="data/sc-pairs", subsample=1.0):
+        super().__init__(directory)
+        n = len(self.images) // 2
+        if subsample < 1:
+            state = np.random.get_state()
+            np.random.seed(0)
+            self.indices = np.random.permutation(n)[:int(n * subsample)]
+            np.random.set_state(state)
+        else:
+            self.indices = np.arange(n)
+
+    def __getitem__(self, idx):
+        rows = 2 * self.indices[idx] + np.arange(2)
+        return (np.zeros(2, np.int32), self.poses[rows],
+                self.images[rows].astype(np.float32) / 255.0)
+
+    def gather(self, indices):
+        """Batch fetch: (names (B, 2), poses (B, 2, 3, 3), uint8 images
+        (B, 2, H, W, C))."""
+        rows = (2 * self.indices[np.asarray(indices)][:, None]
+                + np.arange(2))
+        return (np.zeros(rows.shape, np.int32), self.poses[rows],
+                self.images[rows])
+
+    @staticmethod
+    def prep_batch(batch):
+        """(B, 2, ...) pairs -> (2B, ...), pair i on rows 2i and 2i + 1
+        (datasets.py:125-127)."""
+        return [np.asarray(t).reshape((-1,) + np.shape(t)[2:])
+                for t in batch]

@@ -233,19 +233,33 @@ def _beta_draws(shape, p, generator, like):
     return x / (x + y)
 
 
+def draw_proposals(shape, p, generator=None, like=None,
+                   dtype=torch.float32):
+    """The proposals of Wood's sampler: Beta((p-1)/2, (p-1)/2) draws and
+    uniforms, each of ``shape`` (num_proposals, n, B), drawn in that order
+    from ``generator`` on its own device (without one, on ``like``'s)."""
+    like = like if like is not None else torch.empty((), dtype=dtype)
+    eps = _beta_draws(shape, p, generator, like)
+    u = torch.rand(shape, generator=generator, dtype=like.dtype,
+                   device=_draw_device(generator, like))
+    return eps, u
+
+
 def accepted_beta_draw(kappa, p, n, generator=None,
-                       num_proposals=NUM_PROPOSALS):
+                       num_proposals=NUM_PROPOSALS, proposals=None):
     """Wood's (1994) rejection sampler for the mu-axis component, as the
     accepted Beta draw (n, B): ``num_proposals`` proposals and uniforms are
     drawn at once from ``generator`` (on its own device, then moved to
-    kappa's), each accepted or rejected against the detached kappa (B, 1),
-    and the first accepted one kept, else 0.5. Everything after the draw
-    runs on kappa's device without a host synchronisation."""
+    kappa's), or taken from ``proposals`` (:func:`draw_proposals`' pair,
+    already on kappa's device), each accepted or rejected against the
+    detached kappa (B, 1), and the first accepted one kept, else 0.5.
+    Everything after the draw runs on kappa's device without a host
+    synchronisation."""
     kd = kappa.detach()[..., 0]
-    shape = (num_proposals, n) + tuple(kd.shape)
-    eps = _onto(_beta_draws(shape, p, generator, kd), kd)
-    u = _onto(torch.rand(shape, generator=generator, dtype=kappa.dtype,
-                         device=_draw_device(generator, kd)), kd)
+    if proposals is None:
+        shape = (num_proposals, n) + tuple(kd.shape)
+        proposals = draw_proposals(shape, p, generator, kd)
+    eps, u = (_onto(t, kd) for t in proposals)
     root = torch.sqrt(4.0 * kd ** 2 + (p - 1.0) ** 2)
     b = (p - 1.0) / (2.0 * kd + root)
     a = (p - 1.0 + 2.0 * kd + root) / 4.0
@@ -263,8 +277,11 @@ def sample_vmf(mu, kappa, n=1, eps=None, generator=None,
     """n reparameterised vMF samples; returns :class:`VonMisesFisherStats`.
 
     ``eps`` = (accepted Beta draw (n, B), tangent normal (n, B, p)) fixes
-    the noise (the normal's first coordinate is ignored); otherwise both
-    are drawn from ``generator`` (:func:`accepted_beta_draw`). The accepted
+    the noise (the normal's first coordinate is ignored); ``eps`` =
+    (proposals, uniforms, tangent normal) fixes the sampler's draws
+    (:func:`draw_proposals`, (num_proposals, n, B) each) and leaves the
+    pick to kappa, as a CUDA graph needs; otherwise both are drawn from
+    ``generator`` (:func:`accepted_beta_draw`). The accepted
     draw is detached and pushed through w = (1 - (1+b) e) / (1 - (1-b) e)
     with the attached kappa, so d w / d kappa flows. ``deterministic``
     returns mu n times and draws nothing.
@@ -282,6 +299,9 @@ def sample_vmf(mu, kappa, n=1, eps=None, generator=None,
         if isinstance(eps, torch.Tensor):
             raise TypeError("vMF noise is the pair (accepted Beta draw, "
                             "tangent normal), not one tensor")
+        if len(eps) == 3:
+            e = accepted_beta_draw(kappa, p, n, proposals=eps[:2])
+            eps = (e, eps[2])
         e, v = eps
         if tuple(e.shape) != shape[:-1] or tuple(v.shape) != shape:
             raise ValueError(

@@ -72,7 +72,9 @@ class LieVAE(nn.Module):
     ``fixed_item_rep`` ((L+1)^2, C) is the action decoder's constant
     spectrum; ``r_callback`` a tuple of callables, one per reparameterizer,
     applied to the encoder's features before it. The model is built on
-    ``device`` (default ``"cuda"``).
+    ``device`` (default ``"cuda"``). ``config`` keeps the constructor's
+    keywords but ``device`` and ``r_callback``, so that a serving artifact
+    can rebuild the model (``serve.export_aot``).
     """
 
     def __init__(self, latent_mode="so3", decoder_mode="action",
@@ -86,7 +88,10 @@ class LieVAE(nn.Module):
                  decoder_dtype="unset", deconv_head_dtype="unset",
                  density_k=10, r_callback=None, kernel_impl="fused",
                  device="cuda"):
+        config = {k: v for k, v in locals().items()
+                  if k not in ("self", "device", "r_callback", "__class__")}
         super().__init__()
+        self.config = config
         if kernel_impl not in ("fused", "pallas", "auto", "xla"):
             raise ValueError(f"unknown kernel_impl {kernel_impl!r} (expected "
                              "'fused', 'pallas', 'auto' or 'xla')")

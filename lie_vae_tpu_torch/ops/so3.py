@@ -117,12 +117,12 @@ def s2s2_gram_schmidt(v1, v2):
 
 def vector_to_eazyz(v):
     """R^3 -> ZYZ Euler angles: tanh squashes each coordinate into
-    (-pi, pi) x (0, pi) x (-pi, pi)."""
-    scale = torch.tensor([math.pi, math.pi / 2, math.pi], dtype=v.dtype,
-                         device=v.device)
-    shift = torch.tensor([0.0, math.pi / 2, 0.0], dtype=v.dtype,
-                         device=v.device)
-    return torch.tanh(v) * scale + shift
+    (-pi, pi) x (0, pi) x (-pi, pi). The constants are scalars, so no
+    host-to-device copy runs (a CUDA graph can capture it)."""
+    t = torch.tanh(v)
+    return torch.stack([t[..., 0] * math.pi,
+                        t[..., 1] * (math.pi / 2) + math.pi / 2,
+                        t[..., 2] * math.pi], -1)
 
 
 def group_matrix_to_quaternions(r):

@@ -1,4 +1,6 @@
-"""HTTP front end over :class:`lie_vae_tpu_torch.serve.InferenceSession`.
+"""HTTP front end over :class:`lie_vae_tpu_torch.serve.InferenceSession`,
+or over its graphed subclass :class:`~lie_vae_tpu_torch.serve.AotSession`,
+which it serves the same way: the same routes, lock and wire format.
 
 Counterpart of the JAX package's ``serve_http.py``, with its wire format
 and error contract, so its numpy + urllib client (``serve_client.py``)
@@ -26,8 +28,9 @@ Endpoints (POST unless noted)::
   POST /v1/geodesic     {pose_a, pose_b, steps?}  -> {frames}
 
 Start it with ``python -m lie_vae_tpu_torch.cli.serve http --checkpoint
-<checkpoint.pt> <model flags> --port 8310``, or embed :class:`ServingApp`
-and :func:`make_server` in another process.
+<checkpoint.pt> <model flags> --port 8310`` (or ``--aot <artifact>`` and no
+model flags), or embed :class:`ServingApp` and :func:`make_server` in
+another process.
 """
 import io
 import json

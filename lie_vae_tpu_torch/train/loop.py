@@ -11,8 +11,10 @@ reconstruction error plus beta times the mean KL, or one of the ``control``
 forms; the optimizer (``train/state.py``) applies the gradients. At
 beta == 0 the KL is not computed at all, as the reference's Python branch
 skips it: a zero weight on a NaN KL would still put NaN into the shared
-gradients. The equivariance and continuity regularizers are not ported yet
-(ROADMAP.md, Queue A, A6).
+gradients. The paper's regularizers add to either branch: the equivariance
+loss (a second encoder pass over rotated images, in train mode after the
+main pass, so BatchNorm's running statistics advance twice) and the encoder
+continuity loss over consecutive-pose pairs.
 
 :class:`UnsupervisedExperiment` is the counterpart of the JAX class of the
 same name (reference: ``lie_vae/experiments/unsupervised.py:11-156``), with
@@ -32,6 +34,8 @@ import numpy as np
 import torch
 
 from lie_vae_tpu_torch.data.loader import BatchLoader
+from lie_vae_tpu_torch.losses import (encoder_continuity_loss,
+                                      equivariance_loss)
 from lie_vae_tpu_torch.precision import ieee_float32
 from lie_vae_tpu_torch.train.checkpoint import apply_state
 from lie_vae_tpu_torch.train.logging import MetricWriter
@@ -48,7 +52,8 @@ def _normalize(x, dtype=torch.float32):
 def train_step(model, optimizer, x, beta, eps=None, generator=None,
                elbo_samples=1, control=None, control_p=1,
                monitor_sigma=False, equivariance_lamb=None,
-               encoder_continuity_lamb=None):
+               encoder_continuity_lamb=None, equivariance_rotate="shear",
+               theta=None, eq_eps=None):
     """One optimizer step on the batch ``x`` (NHWC images, uint8 or float,
     or toy spectra; moved to the model's device, uint8 scaled to [0, 1] in
     the model's dtype). ``eps`` (elbo_samples, B, model.noise_dims) fixes
@@ -58,11 +63,17 @@ def train_step(model, optimizer, x, beta, eps=None, generator=None,
     ``recon``, ``kl``, ``kls`` (a list, one per
     latent), ``loss`` and, with ``monitor_sigma``, ``sigma_max``. After
     the step each parameter's ``.grad`` holds its gradient of the loss,
-    unclipped."""
-    if equivariance_lamb is not None or encoder_continuity_lamb is not None:
-        raise NotImplementedError(
-            "the equivariance and encoder-continuity losses are not ported "
-            "yet (ROADMAP.md, Queue A, A6)")
+    unclipped.
+
+    ``equivariance_lamb`` and ``encoder_continuity_lamb`` (numbers; None
+    leaves the loss out, 0 computes it with weight 0) add the two
+    regularizers on the first sample of the first latent, with the metrics
+    ``equivariance`` and ``encoder_continuity``. The equivariance loss
+    rotates the batch by ``theta`` (B,) with ``equivariance_rotate``
+    ('shear' or 'gather') and encodes it again in train mode with the noise
+    ``eq_eps`` (1, B, noise_dims), or the vMF pair; each is drawn from
+    ``generator`` when not given (theta uniform in [0, 2 pi)). The
+    continuity loss pairs rows (2i, 2i + 1)."""
     if control is not None and control_p not in (1, 2):
         raise ValueError("Wrong control p")
     param = next(model.parameters())
@@ -87,10 +98,39 @@ def train_step(model, optimizer, x, beta, eps=None, generator=None,
         loss = mean_recon
         mean_kl = torch.zeros((), device=device)
         kls_mean = [mean_kl for _ in stats]
+    metrics = {"recon": mean_recon.detach(), "kl": mean_kl, "kls": kls_mean}
+    encoding = stats[0].z[0]
+    if equivariance_lamb is not None:
+        b = x.shape[0]
+        draw = generator.device if generator is not None else device
+        if theta is None:
+            theta = torch.rand((b,), generator=generator, dtype=x.dtype,
+                               device=draw) * (2.0 * math.pi)
+        if eq_eps is None and model.noise_dims is not None \
+                and not model.is_vmf:
+            eq_eps = torch.randn((1, b, model.noise_dims),
+                                 generator=generator, dtype=x.dtype,
+                                 device=draw)
+
+        def encode_fn(img):
+            # train mode, after the main pass: BatchNorm's running
+            # statistics advance a second time, as the reference's do
+            return model.encode(img, n=1, eps=eq_eps,
+                                generator=generator)[0].z[0]
+
+        if not isinstance(theta, torch.Tensor):
+            theta = torch.tensor(np.asarray(theta))
+        eq, _ = equivariance_loss(encode_fn, x, encoding, theta.to(device),
+                                  rotate_impl=equivariance_rotate)
+        loss = loss + equivariance_lamb * eq
+        metrics["equivariance"] = eq.detach()
+    if encoder_continuity_lamb is not None:
+        cont, _ = encoder_continuity_loss(encoding)
+        loss = loss + encoder_continuity_lamb * cont
+        metrics["encoder_continuity"] = cont.detach()
     loss.backward()
     optimizer.step()
-    metrics = {"recon": mean_recon.detach(), "kl": mean_kl, "kls": kls_mean,
-               "loss": loss.detach()}
+    metrics["loss"] = loss.detach()
     if monitor_sigma:
         metrics["sigma_max"] = torch.max(stats[0].inner.sigma).detach()
     return metrics
@@ -116,8 +156,13 @@ class UnsupervisedExperiment:
     land on the first group boundary at or after ``report_freq``); the steps
     of a group run one at a time, each with its own beta, as in the scan.
     ``device_data`` keeps each dataset's inputs on the model's device
-    and gathers batches there. ``mesh`` (data parallelism, ROADMAP.md,
-    Queue A, A9) and the equivariance and continuity losses (A6) raise.
+    and gathers batches there (a paired dataset's two rows an item).
+    ``equivariance_lamb`` and ``encoder_continuity_lamb`` are schedules of
+    the global step (the CLI's ``LinearSchedule``s), each loss computed on
+    every step once its schedule is given; the rotation angles and the
+    second encoder pass's noise come from the training stream after the
+    step's posterior noise. ``mesh`` (data parallelism, ROADMAP.md, Queue A,
+    A9) raises.
     """
 
     def __init__(self, *, model, train_dataset, test_dataset, beta_schedule,
@@ -131,11 +176,6 @@ class UnsupervisedExperiment:
             raise NotImplementedError(
                 "data-parallel training over a mesh is not ported yet "
                 "(ROADMAP.md, Queue A, A9)")
-        if equivariance_lamb is not None \
-                or encoder_continuity_lamb is not None:
-            raise NotImplementedError(
-                "the equivariance and encoder-continuity losses are not "
-                "ported yet (ROADMAP.md, Queue A, A6)")
         if equivariance_rotate not in ("shear", "gather"):
             raise ValueError(f"unknown equivariance_rotate "
                              f"{equivariance_rotate!r}")
@@ -151,6 +191,9 @@ class UnsupervisedExperiment:
         self.test_dataset = test_dataset
         self.elbo_samples = elbo_samples
         self.report_freq = report_freq
+        self.equivariance_lamb = equivariance_lamb
+        self.encoder_continuity_lamb = encoder_continuity_lamb
+        self.equivariance_rotate = equivariance_rotate
         self.log = log if isinstance(log, MetricWriter) else MetricWriter(log)
         self.log_histograms = log_histograms
         self.best_value = np.inf
@@ -186,9 +229,11 @@ class UnsupervisedExperiment:
 
     def _cache_device(self, dataset):
         """The dataset's inputs, all of them, on the model's device (uint8
-        images, or the toy spectra as they are)."""
+        images, or the toy spectra as they are), and the rows an item
+        (2 for a paired dataset, whose ``prep_batch`` flattens the pairs)."""
         images = dataset.prep_batch(dataset.gather(np.arange(len(dataset))))
-        return torch.as_tensor(np.asarray(images[-1]), device=self.device)
+        rows = torch.as_tensor(np.asarray(images[-1]), device=self.device)
+        return rows, rows.shape[0] // len(dataset)
 
     def _eps(self, stream, n, batch):
         """Standard normal posterior noise (n, batch, model.noise_dims) from
@@ -215,10 +260,32 @@ class UnsupervisedExperiment:
         gathered from the cached dataset by the same indices."""
         if cached is None:
             return (np.asarray(b[-1]) for b in loader)
+        rows, factor = cached
         batches = loader._index_batches()
         loader.epoch += 1
-        return (cached[torch.as_tensor(idx, device=self.device)]
+        return (rows[(torch.as_tensor(idx, device=self.device)[:, None]
+                      * factor + torch.arange(factor, device=self.device)
+                      ).reshape(-1)]
                 for idx in batches)
+
+    def _regularizers(self, global_it, batch):
+        """The train step's regularizer keywords at ``global_it``: each
+        configured loss's weight and, for the equivariance loss, the
+        rotation angles (B,) and the second pass's noise from the training
+        stream (a vMF model draws that noise from the stream itself)."""
+        kw = {}
+        if self.encoder_continuity_lamb is not None:
+            kw["encoder_continuity_lamb"] = self.encoder_continuity_lamb(
+                global_it)
+        if self.equivariance_lamb is not None:
+            gen = self._gens["train"]
+            kw.update(equivariance_lamb=self.equivariance_lamb(global_it),
+                      equivariance_rotate=self.equivariance_rotate,
+                      theta=torch.rand((batch,), generator=gen)
+                      * (2.0 * math.pi))
+            if not getattr(self.model, "is_vmf", False):
+                kw["eq_eps"] = self._eps("train", 1, batch)
+        return kw
 
     # -------------------------------------------------------------- eval
 
@@ -265,9 +332,10 @@ class UnsupervisedExperiment:
                 continue
             for global_it, xb in group:
                 beta = self.beta_schedule(global_it)
+                noise = self._noise("train", self.elbo_samples, xb.shape[0])
+                reg = self._regularizers(global_it, xb.shape[0])
                 metrics = train_step(
-                    self.model, self.optimizer, xb, beta,
-                    **self._noise("train", self.elbo_samples, xb.shape[0]),
+                    self.model, self.optimizer, xb, beta, **noise, **reg,
                     elbo_samples=self.elbo_samples, control=self.control,
                     control_p=self.control_p,
                     monitor_sigma=self._monitor_sigma)
@@ -276,16 +344,20 @@ class UnsupervisedExperiment:
             if steps_since_report >= self.report_freq \
                     or it + 1 == num_batches:
                 self._report(epoch, it, group[-1][0], beta, start,
-                             n_steps=steps_since_report)
+                             n_steps=steps_since_report, lambs=reg)
                 steps_since_report = 0
                 start = time.time()
             group = []
 
-    def _report(self, epoch, it, global_it, beta, start, n_steps):
+    def _report(self, epoch, it, global_it, beta, start, n_steps,
+                lambs=None):
         # one device->host transfer of the window's metrics; every step in
         # the window weighs the same
-        names = ["recon", "kl"] + (["sigma_max"] if self._monitor_sigma
-                                   else [])
+        lambs = lambs or {}
+        regs = [k for k in ("equivariance", "encoder_continuity")
+                if f"{k}_lamb" in lambs]
+        names = ["recon", "kl"] + regs + (["sigma_max"] if self._monitor_sigma
+                                          else [])
         sums = torch.stack([torch.stack([m[k] for k in names])
                             for m in self._window]).double().sum(0)
         means = dict(zip(names, (sums / len(self._window)).tolist()))
@@ -298,6 +370,9 @@ class UnsupervisedExperiment:
                             global_it)
         self.log.add_scalar("train_recon", train_recon, global_it)
         self.log.add_scalar("train_kl", train_kl, global_it)
+        for k in regs:
+            self.log.add_scalar(k, means[k], global_it)
+            self.log.add_scalar(f"{k}_lamb", lambs[f"{k}_lamb"], global_it)
         if self._monitor_sigma:
             sigma_max = means["sigma_max"]
             self.log.add_scalar("sigma_max", sigma_max, global_it)
@@ -343,6 +418,7 @@ class UnsupervisedExperiment:
         def step():
             train_step(self.model, self.optimizer, x, beta,
                        **self._noise("train", self.elbo_samples, x.shape[0]),
+                       **self._regularizers(1, x.shape[0]),
                        elbo_samples=self.elbo_samples, control=self.control,
                        control_p=self.control_p)
 

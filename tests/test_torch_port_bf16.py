@@ -54,6 +54,8 @@ from lie_vae_tpu_torch import compat
 from lie_vae_tpu_torch.compat import state_dict_from_jax
 from lie_vae_tpu_torch.models import LieVAE, bench_model, flagship_model
 from lie_vae_tpu_torch.train import make_optimizer, train_step
+from test_torch_port_models import (  # noqa: F401
+    no_persistent_compile_cache)
 
 KW = dict(latent_mode="so3", decoder_mode="action", mean_mode="s2s2",
           encode_mode="conv", deconv_mode="deconv", rgb=True, degrees=2,

@@ -25,6 +25,8 @@ from lie_vae_tpu.data import render as jrender
 from lie_vae_tpu_torch.cli import gen_spherecube
 from lie_vae_tpu_torch.data import (BatchLoader, SphereCubeDataset,
                                     random_split, render_spherecube)
+from test_torch_port_models import (  # noqa: F401
+    no_persistent_compile_cache)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MANIFEST = os.path.join(ROOT, "data_poses", "spherecube.npz")

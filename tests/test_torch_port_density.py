@@ -40,6 +40,8 @@ from lie_vae_tpu.distributions import so3 as jso3
 from lie_vae_tpu_torch import distributions as tdist
 from lie_vae_tpu_torch.distributions import so3 as tso3
 from lie_vae_tpu_torch.ops.kernels import so3_density
+from test_torch_port_models import (  # noqa: F401
+    no_persistent_compile_cache)
 
 TOL = 1e-10
 KS = (0, 1, 10)

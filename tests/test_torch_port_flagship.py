@@ -13,6 +13,8 @@ from __graft_entry__ import _flagship_model
 from lie_vae_tpu import serve as jserve
 from lie_vae_tpu_torch import serve as tserve
 from lie_vae_tpu_torch.models import flagship_model
+from test_torch_port_models import (  # noqa: F401
+    no_persistent_compile_cache)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHECKPOINT = os.path.join(ROOT, "converged_state", "torch_clean", "best.pt")

@@ -49,6 +49,8 @@ from lie_vae_tpu_torch.train import (ConstantSchedule, UnsupervisedExperiment,
                                      make_optimizer, train_step)
 from lie_vae_tpu_torch.train.checkpoint import (load_checkpoint,
                                                 restore_state, save_state)
+from test_torch_port_models import (  # noqa: F401
+    no_persistent_compile_cache)
 
 
 @pytest.fixture(scope="module")
@@ -378,9 +380,9 @@ def test_cli_runs_end_to_end(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["--config", "reg"], "A6"), (["--config", "contreg"], "A6"),
-    (["--config", "scpairs"], "A6"), (["--mesh_data", "2"], "A9"),
-    (["serve", "export", "--aot", "--checkpoint", "unused"], "A8b"),
+    (["--mesh_data", "2"], "A9"), (["--mesh_model", "2"], "A9"),
+    (["serve", "export", "--aot_data_devices", "2", "--checkpoint",
+      "unused"], "A9"),
     (["serve", "sample", "--data_devices", "2", "--checkpoint", "unused"],
      "A9")])
 def test_cli_modes_not_ported_raise(args, item):

@@ -22,6 +22,31 @@ from lie_vae_tpu.models import MEAN_MODULES as JAX_MEAN_MODULES
 from lie_vae_tpu_torch.compat import state_dict_from_jax
 from lie_vae_tpu_torch.models import MEAN_MODULES, LieVAE
 
+
+@pytest.fixture(scope="module", autouse=True)
+def no_persistent_compile_cache():
+    """Each port test module compiles its JAX references without JAX's
+    persistent compilation cache, and gives it back to the next module.
+
+    Importing the JAX package turns that cache on
+    (``lie_vae_tpu/utils.py``, ``enable_compilation_cache``: an LRU cache of
+    8 GiB), and ``tests/conftest.py`` points every process of the suite at
+    one directory. JAX guards that cache with one file lock across
+    processes, held for every lookup and, on every write, for a scan of
+    the whole directory; with the suite's six workers sharing it, a test
+    of many small compiles waits on that lock for minutes, and the whole
+    suite ran 968 s against 278 s without the cache (ROADMAP.md, the tier-1
+    ground rule). Small CPU programs compile faster than they wait, so the
+    port's modules leave the lock to the JAX package's own tests. Imported
+    by every ``test_torch_port_*`` module."""
+    from jax._src import compilation_cache
+    saved = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    yield
+    jax.config.update("jax_enable_compilation_cache", saved)
+    compilation_cache.reset_cache()
+
 TOL = 1e-4
 SMALL = dict(latent_mode="so3", decoder_mode="action", encode_mode="conv",
              deconv_mode="deconv", degrees=3, rep_copies=4, conv_hidden=8,
@@ -145,3 +170,31 @@ def test_state_dict_from_jax_is_strict():
     wrong = dict(flat, **{"params/decoder/item_rep": np.zeros((9, 4))})
     with pytest.raises(ValueError, match="shape"):
         state_dict_from_jax(wrong, model)
+
+
+@pytest.mark.parametrize("cfg", [
+    {}, {"rgb": False}, {"batch_norm": False},
+    {"latent_mode": "normal", "decoder_mode": "mlp"},
+    {"conv_hidden": 4, "degrees": 2}])
+def test_encoder_is_layout_agnostic(cfg):
+    """The encoder takes the NHWC images as a permuted view, which is
+    channels_last in memory, and its convolutions carry that layout through
+    it; laid out NCHW instead, the same images give the same features and
+    the same weight gradients, in float64. (On the card the two layouts run
+    different cuDNN kernels; ``python -m lie_vae_tpu_torch.conv_precision``
+    holds both against the exact step, ROADMAP.md, Queue C, C7.)"""
+    model = LieVAE(device="cpu", **dict(SMALL, **cfg)).double().train()
+    c = model.encoder[0].in_channels
+    x = torch.tensor(np.random.default_rng(1).uniform(
+        size=(4, 64, 64, c))).permute(0, 3, 1, 2)
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    out = {}
+    for name, xin in (("view", x),
+                      ("nchw", x.clone(memory_format=torch.contiguous_format))):
+        model.zero_grad()
+        h = model.encoder(xin)
+        (h * torch.linspace(-1, 1, h.shape[1], dtype=h.dtype)).sum().backward()
+        out[name] = [h.detach()] + [p.grad.clone()
+                                    for p in model.encoder.parameters()]
+    for got, want in zip(out["view"], out["nchw"]):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-12)

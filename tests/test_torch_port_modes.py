@@ -41,6 +41,8 @@ from lie_vae_tpu.models import LieVAE as JaxLieVAE
 from lie_vae_tpu.models.decoders import ActionDecoder as JaxActionDecoder
 from lie_vae_tpu_torch.compat import state_dict_from_jax
 from lie_vae_tpu_torch.models import ActionDecoder, LieVAE
+from test_torch_port_models import (  # noqa: F401
+    no_persistent_compile_cache)
 
 TOY = dict(encode_mode="toy", deconv_mode="toy", degrees=2, rep_copies=3,
            mlp_hidden=6, group_reparam_in_dims=4)

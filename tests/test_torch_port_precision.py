@@ -26,6 +26,8 @@ from lie_vae_tpu_torch.serve import InferenceSession
 from lie_vae_tpu_torch.train import (ConstantSchedule, UnsupervisedExperiment,
                                      make_optimizer, train_step)
 from lie_vae_tpu_torch.train.checkpoint import save_state
+from test_torch_port_models import (  # noqa: F401
+    no_persistent_compile_cache)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IEEE = ("ieee", "ieee")

@@ -23,6 +23,8 @@ from lie_vae_tpu.models import LieVAE as JaxLieVAE
 from lie_vae_tpu_torch import serve as tserve
 from lie_vae_tpu_torch.compat import state_dict_from_jax
 from lie_vae_tpu_torch.models import LieVAE
+from test_torch_port_models import (  # noqa: F401
+    no_persistent_compile_cache)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(latent_mode="so3", decoder_mode="action", encode_mode="conv",
@@ -119,6 +121,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         os.path.relpath(p, ROOT)[:-3].replace(os.sep, ".").removesuffix(
             ".__init__")
         for p in _PORT_SOURCES if not p.endswith("chip_smoke.py"))
+    for m in ("lie_vae_tpu_torch.losses", "lie_vae_tpu_torch.losses."
+              "equivariance", "lie_vae_tpu_torch.losses.continuity",
+              "lie_vae_tpu_torch.bench_serve_load", "lie_vae_tpu_torch.serve"):
+        assert m in modules, m
     code = (f"import sys\nfor m in {modules!r}:\n    __import__(m)\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -18,8 +18,9 @@ artifacts) held against the JAX package's, on the CPU at a small size.
   served by the port, each answering as the session it came from;
 - ``cli.serve`` ``export`` (to .npz, from a reference state_dict, back to
   a reference state_dict), ``sample``, ``trajectory`` and ``bench`` with
-  ``--device cpu``; ``--aot`` and ``--data_devices`` raise naming their
-  ROADMAP.md items;
+  ``--device cpu``; ``--data_devices`` and ``--aot_data_devices`` (a
+  mesh) raise naming ROADMAP.md's A9 (``--aot`` itself:
+  ``test_torch_port_aot.py``);
 - each latent's ``sample`` (the prior the session's generator draws) and
   ``geodesic`` (SO(3)'s exp map, the Gaussian's line, the quaternions'
   slerp on the shorter arc and its constant case) against the JAX
@@ -55,6 +56,8 @@ from lie_vae_tpu_torch.models import LieVAE
 from lie_vae_tpu_torch.train import make_optimizer
 from lie_vae_tpu_torch.train.checkpoint import save_state
 from test_torch_port_vmf import _recover_noise
+from test_torch_port_models import (  # noqa: F401
+    no_persistent_compile_cache)
 
 CONFIGS = {"so3": dict(modes_test.TOY, mean_mode="s2s2"),
            "normal": dict(modes_test.TOY, latent_mode="normal"),
@@ -291,7 +294,8 @@ def test_concurrent_requests_run_one_at_a_time(stacks, monkeypatch):
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        t.join(timeout=120)
+        assert not t.is_alive(), "a client's request did not finish"
     assert most[0] == 1
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
@@ -396,10 +400,10 @@ def test_cli_export_sample_trajectory_bench(run_dir, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["export", "--aot", "--checkpoint", "x"], "A8b"),
-    (["export", "--aot_batch", "32", "--checkpoint", "x"], "A8b"),
-    (["sample", "--aot", "x"], "A8b"),
-    (["sample", "--data_devices", "2", "--checkpoint", "x"], "A9")])
+    (["export", "--aot", "--aot_data_devices", "2", "--checkpoint", "x"],
+     "A9"),
+    (["sample", "--data_devices", "2", "--checkpoint", "x"], "A9"),
+    (["http", "--aot", "x", "--data_devices", "2"], "A9")])
 def test_cli_serve_unported_flags_raise(argv, item):
     with pytest.raises(NotImplementedError, match=f"Queue A, {item}\\)"):
         cli_serve.main(argv + _FLAGS)

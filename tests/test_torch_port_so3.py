@@ -14,6 +14,8 @@ from lie_vae_tpu import distributions as jdist
 from lie_vae_tpu import ops as jops
 from lie_vae_tpu_torch import distributions as tdist
 from lie_vae_tpu_torch import ops as tops
+from test_torch_port_models import (  # noqa: F401
+    no_persistent_compile_cache)
 
 TOL = 1e-10
 

@@ -42,6 +42,8 @@ from lie_vae_tpu_torch.serve import InferenceSession
 from lie_vae_tpu_torch.train import ConstantSchedule, UnsupervisedExperiment
 
 import test_torch_port_modes as modes_test
+from test_torch_port_models import (  # noqa: F401
+    no_persistent_compile_cache)
 
 
 @pytest.fixture(scope="module")

@@ -43,6 +43,8 @@ from lie_vae_tpu.models import LieVAE as JaxLieVAE
 from lie_vae_tpu_torch.compat import state_dict_from_jax, state_dict_to_jax
 from lie_vae_tpu_torch.distributions import vmf
 from lie_vae_tpu_torch.models import LieVAE
+from test_torch_port_models import (  # noqa: F401
+    no_persistent_compile_cache)
 
 ORDERS = (0.5, 1.0, 1.5, 2.0, 3.5)
 PS = (3, 4, 9)

@@ -28,6 +28,8 @@ import jax.numpy as jnp
 from lie_vae_tpu import ops as jops
 from lie_vae_tpu_torch import ops as tops
 from lie_vae_tpu_torch.ops.kernels import wigner_block, wigner_fused
+from test_torch_port_models import (  # noqa: F401
+    no_persistent_compile_cache)
 
 TOLS = {np.float64: 1e-10, np.float32: 2e-5}
 DEGREES = (0, 1, 3, 6)

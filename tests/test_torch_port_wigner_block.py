@@ -31,6 +31,8 @@ from lie_vae_tpu.ops.kernels.wigner_block import (
 from lie_vae_tpu_torch import ops as tops
 from lie_vae_tpu_torch.ops.kernels import wigner_block
 from lie_vae_tpu_torch.ops.kernels import wigner_fused
+from test_torch_port_models import (  # noqa: F401
+    no_persistent_compile_cache)
 
 DEGREES = (0, 2, 3)
 BATCHES = (1, 5, 17)

@@ -29,6 +29,8 @@ import jax.numpy as jnp
 from lie_vae_tpu import ops as jops
 from lie_vae_tpu_torch import ops as tops
 from lie_vae_tpu_torch.ops.kernels import wigner_fused
+from test_torch_port_models import (  # noqa: F401
+    no_persistent_compile_cache)
 
 DEGREES = (0, 1, 3, 6, 10)
 NP_DTYPE = {torch.float64: np.float64, torch.float32: np.float32}
