@@ -1,9 +1,11 @@
 """Drive the PyTorch port's serving path, its training step (in float32
-and in bench.py's bfloat16 recipe), its experiment CLI (sphere-cube renders,
-the toy experiment, the Gaussian baseline), a Gaussian-latent session, the
-vMF latents, the HTTP server, the serving CLI's export, the graphed
-ahead-of-time session and the paper's regularised training on sc-pairs on
-one NVIDIA GPU and check them.
+and in bench.py's bfloat16 recipe), its data path (native renders, PNG
+datasets, the disk cache, the threaded loader), its experiment CLI
+(sphere-cube renders, the toy experiment, the Gaussian baseline), a
+Gaussian-latent session, the vMF latents, the HTTP server, the serving
+CLI's export, the graphed ahead-of-time session, the paper's regularised
+training on sc-pairs and the latent-space analysis and checkpoint
+evaluation on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -13,9 +15,13 @@ Phases, each timed:
 1. card: name and power limit (nvidia-smi), torch, CUDA and nvcc versions;
 2. build: the Wigner chain kernels (csrc/wigner_chain.cu), the density
    kernels (csrc/so3_density.cu) and the synthesise-then-apply Wigner
-   kernels (csrc/wigner_block.cu), one nvcc each, started together, each
-   with ``-Xptxas -v``, whose report of each kernel's registers, stack frame
-   and spills the build keeps beside the library;
+   kernels (csrc/wigner_block.cu), one nvcc each, and the data path's host
+   library (csrc/render_native.cpp: the native renderer and the PNG
+   unfilter) with g++, all started together, each nvcc with ``-Xptxas
+   -v``, whose report of each kernel's registers, stack frame and spills
+   the build keeps beside the library; beside the builds, the profiler's
+   first use (seconds of host time) and the start of phase 23's fresh
+   interpreter;
 3. K1, the chain kernel without residuals, against the plain chain on the
    card over L in {0, 1, 3, 6, 10}, C in {1, 10}, B in {1, 64, 4103},
    shared and per-sample spectra, transpose on and off; then both timed
@@ -33,14 +39,16 @@ Phases, each timed:
    plain density and its autograd in float64: N in {1, 64, 4103, 65536}
    samples (the last as n = 4 samples of a batch of 16384) and the IW-LL's
    n = 500 samples of one item, k in {0, 1, 10}, sigma from 1e-6 to
-   pi * 10 / 2, v = 0 and |v| near multiples of 2 pi; then the KL entry
+   pi * 10 / 2, v = 0 and |v| near multiples of 2 pi, and k = 30 (the
+   generic-k instantiation, which the evaluation's k = 30 runs); then the
+   KL entry
    (K3 with the mean over n and the Haar prior folded in, K4 taking its
    (B,) cotangent) against the plain KL and its autograd, n in {1, 4}, on
    the same grid; every case run twice to repeat bit for bit; timed at
    N = 64 and N = 4096 with CUDA events, and by device time from a CUDA
    graph of 20 launches at N in {64, 4096, 65536} (the KL entry, the
    training path) and at n = 500, B = 1 (the per-sample entry, the IW-LL's
-   call);
+   call, at k = 10 and k = 30);
 6. K5 and K6, the synthesise-then-apply Wigner kernel and its backward
    (angles in, trig formed in the kernel; d angles and d spectrum out),
    against the plain version (``trig_features`` then
@@ -56,8 +64,16 @@ Phases, each timed:
    sample, encode, reconstruct, geodesic and a ragged decode, checked for
    shape, finiteness, rotations and one kernel launch per decode chunk,
    then held against the same requests served on the CPU, and timed;
-8. renders: 1024 poses of data_poses/spherecube.npz rendered with the
-   port's ray-caster (``cli/gen_spherecube.py``) into chiprun_out/;
+8. renders: 1024 poses of data_poses/spherecube.npz rendered natively into
+   a directory of PNG files in the JAX package's layout
+   (``cli/gen_spherecube.py``) in chiprun_out/; 64 of them also by the numpy
+   ray-caster, held within 1e-4, the uint8 bytes that differ counted;
+   seconds per 1024 images natively and with numpy (timed on those 64);
+   the dataset opened cold (ms per image decoded, on 256), ``warm_cache``
+   decoding and writing the disk cache, and an open that reads it, each
+   open's items equal to the rendered bytes; the threaded ``BatchLoader``
+   giving the serial batches; every later phase that trains on renders
+   takes the images read back;
 9. training, with ``kernel_impl='fused'`` (K2, K3, K4) and with
    ``'pallas'`` (K5, K6, K3, K4), first in float32 (IEEE: the entry
    points turn TF32 off), then in ``bench.py``'s recipe
@@ -84,7 +100,9 @@ Phases, each timed:
    with ``--kernel_impl fused`` (K1, K2, K3, K4) and then ``pallas`` (K5,
    K6, K3, K4), two epochs each, checked as the CLI phase;
 12. ``--config normal`` (Gaussian latent, MLP decoder: none of the
-   kernels) on the renders, one epoch, checked as the CLI phase;
+   kernels) on the renders with ``--device_data`` (the dataset's
+   ``warm_cache`` reading the renders phase's disk cache), one epoch,
+   checked as the CLI phase;
 13. a Gaussian latent with the action decoder at the flagship's widths:
    five steps on the renders (K2 forward and backward each, the angle
    gradients through the tanh chart), then served at batch 64 (encode,
@@ -102,7 +120,8 @@ Phases, each timed:
    ``vmfq`` model served at batch 64 ('fused': K1 per decode chunk) and held
    against a CPU session (encode, decode, sample, reconstruct, geodesic);
 15. ``cli.main --dataset spherecube --latent_mode vmfq --kernel_impl
-   pallas``, one epoch on the renders, checked as the CLI phase;
+   pallas --device_data``, one epoch on the renders, checked as the CLI
+   phase;
 16. the HTTP server (``serve_http.make_server``) over the flagship session
    in a thread on an ephemeral port, driven by a client written here with
    urllib and numpy: ``/healthz`` and every ``/v1/`` route in ``.npz`` and
@@ -120,7 +139,9 @@ Phases, each timed:
    with cuDNN's deterministic algorithms and held against an in-process
    ``InferenceSession`` of the same weights and seed (requests of 64 and
    of 100 rows: decode bit for bit, encode and reconstruct within 1e-6),
-   the kernel named in a torch.profiler trace of one decode replay, and
+   the kernel named in a torch.profiler trace of one decode replay (a
+   trace with under half the device events of the same call ungraphed is
+   taken again, at most 3 in all; one with them and no kernel fails), and
    held again after 200 replays of varied requests; then, at torch's
    defaults, ms per request of 64 graphed and ungraphed in turns and the
    device's busy share of a decode ('fused'); a ``vmfq`` model's graphed
@@ -129,8 +150,8 @@ Phases, each timed:
 19. ``bench_serve_load``: the graphed 'fused' session behind the HTTP
    server, /v1/reconstruct at 1 and 4 clients, 2 s each: requests/s,
    images/s, p50/p95 latency; replays only, no launch outside a graph;
-20. sc-pairs: 320 seeded consecutive-pose pairs rendered by the port's
-   generator into chiprun_out/;
+20. sc-pairs: 320 seeded consecutive-pose pairs rendered natively by the
+   port's generator as PNG pairs into chiprun_out/;
 21. the regularised step: the flagship from the converged weights with
    equivariance 100 and encoder continuity 3000 (the ``reg`` preset's), 64
    pairs = 128 images, with 'fused' and 'pallas' under the 'shear' rotation
@@ -142,16 +163,35 @@ Phases, each timed:
    the pairs with both schedules at their full weights from the first step
    (ramps that end at step 999, before they start), checked as the CLI
    phase, and its four regularizer tags finite, both weights above 0;
-23. a fresh interpreter with torch's default precision settings: an
-   ``InferenceSession`` decode of the flagship and one ``train_step``,
-   which must run in IEEE float32 (``precision.ieee_float32``) and leave
-   the settings as they found them; the flags seen inside, the cuDNN
-   kernels named TF32, and the distance to the CPU, printed.
+23. a fresh interpreter with torch's default precision settings (started
+   in the build phase, where it imports and warms its profiler up, and
+   handed its inputs here): an ``InferenceSession`` decode of the
+   flagship and one ``train_step``, which must run in IEEE float32
+   (``precision.ieee_float32``) and leave the settings as they found them;
+   the flags seen inside, the cuDNN kernels named TF32, and the distance
+   to the CPU, printed;
+24. the analysis: ``cli.analyze_spherecube`` on the converged flagship at
+   full width on the card, 200 poses of each trajectory rendered natively,
+   encoded, their discontinuity and PCA, the encoded-pose and recon strips,
+   run twice: 'fused' (K1 in the decodes) and ``--kernel_impl pallas``
+   (K5), each a path of its own; each held against the same analysis on
+   the CPU (the encodings to POSE_TOL, the recon strip to IMAGE_TOL, the
+   discontinuity means and maxima and the reconstruction error to 1e-3
+   relative, the outlier counts up to the jumps within 1e-3 of their
+   threshold), each model's modes, flags, shell count and weights as
+   before; ``analysis.toy_inputs_for_trajectory`` with 'fused' (K1) and
+   'pallas' (K5), a path of its own, against the plain chain to
+   KERNEL_TOL;
+25. ``cli.eval_checkpoint`` on the CLI phase's best checkpoint at
+   ``--density_k 10 30``, ``--ll_n 500``, a few items (K1 in the decode,
+   K3 at k = 10 and at k = 30): both IW-LLs finite, each item's no lower
+   than the mean of its own log-weights; the difference printed.
 
 The last lines are a JSON record of the kernels, the card line, and
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result; it does so too without a CUDA card.
 """
+import atexit
 import json
 import math
 import os
@@ -254,6 +294,19 @@ REG_EQ, REG_CONT = 100.0, 3000.0
 REG_PAIRS = 64
 REG_RENDER = 320
 PAIRS_DIR = os.path.join(ROOT, "chiprun_out", "smoke_data", "sc-pairs")
+# the renders phase: poses also rendered (and timed) by the numpy
+# ray-caster, held to the native ones within the JAX package's tolerance
+# between its backends; the renders decoded cold and timed
+NUMPY_CHECK = 64
+RENDER_TOL = 1e-4
+COLD_DECODE = 256
+# the analysis: poses per trajectory, and its outputs
+N_TRAJ = 200
+ANALYSIS_DIR = os.path.join(ROOT, "chiprun_out", "smoke_analysis")
+# the checkpoint evaluation: shell counts, importance samples, items
+EVAL_K = (10, 30)
+EVAL_N = 500
+EVAL_ITEMS = 4
 
 
 def phase(name):
@@ -886,15 +939,38 @@ def export_phase(cli_dir, flags):
                              f"|diff| {np.abs(a - b).max()}")
 
 
-def _replay_kernels(name, fn, want):
+# A trace of a graph replay is held to the trace of the same call in the
+# ungraphed twin session. The profiler has once come back with 2 device
+# events of a replay's 88 (a memcpy and an add), the graph's kernels missing
+# from the trace while the session's answers held (NVIDIA H100 80GB HBM3,
+# 700.00 W): a trace with under half the twin's events lost the replay and
+# is taken again, up to TRACE_ATTEMPTS traces in all; a trace with the
+# events and without the kernel fails at once.
+TRACE_ATTEMPTS = 3
+
+
+def _traced_kernels(name, fn, want, floor=None):
     """The device items of one call of ``fn`` under torch.profiler (a trace
-    under build/profile/): fails unless an item's name holds ``want``."""
+    under build/profile/), its trace's figures and the traces taken.
+    Returns when an item's name holds ``want``. A trace without it fails
+    at once if it holds at least ``floor`` device events; one with fewer
+    (any, without ``floor``: a call known to launch the kernel) is printed
+    and taken again, up to TRACE_ATTEMPTS traces (each runs ``fn`` twice:
+    once before the profiler starts, once under it)."""
     from lie_vae_tpu_torch.profile_serve import profile_request
-    items, prof = profile_request(name, fn, 1, PROFILE_DIR)
-    if not any(want in k for k in items):
-        raise AssertionError(f"{name}: no {want} among the device items of "
-                             f"one replay: {sorted(items)[:20]}")
-    return items, prof
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        items, prof = profile_request(name, fn, 1, PROFILE_DIR)
+        if any(want in k for k in items):
+            return items, prof, attempt
+        print(f"   {name}: trace {attempt} of {TRACE_ATTEMPTS} holds "
+              f"{prof['events']:.0f} device events (at least "
+              f"{floor} hold the call) and no {want}: {sorted(items)[:20]}")
+        if floor is not None and prof["events"] >= floor:
+            raise AssertionError(f"{name}: {prof['events']:.0f} device "
+                                 f"events and no {want}: the call ran "
+                                 "without its kernel")
+    raise AssertionError(f"{name}: the profiler lost the call in "
+                         f"{TRACE_ATTEMPTS} traces")
 
 
 # the graphed flagship session's launches at construction: the decode and
@@ -929,16 +1005,18 @@ def aot_phase(impl, counters, counts, images, poses, timed=True):
     a request of 64 and a ragged one of 100: decode bit for bit, encode
     (the same generator draws) and reconstruct within 1e-6; the kernel of
     the decode (K1 for 'fused', K5 for 'pallas') named in a torch.profiler
-    trace of one decode replay, with the session's replay count up by one
-    and the kernel's launch count not moved; then AOT_REPLAYS replays of
-    varied requests and a request held again (a stale buffer would show).
-    The second (with ``timed``) timed against the ungraphed session: ms
-    per request of 64, in turns (host clock, median of 20), and the
-    device's busy share of a request. Each graphed session's launches are
-    read around its construction alone (:func:`open_aot`), so the twins'
-    launches enter no count. Returns the timing session (None without
-    ``timed``), the checks' and timings' record, the replays by surface,
-    and the constructions' launches summed."""
+    trace of one decode replay (:func:`_traced_kernels`, against the
+    ungraphed twin's trace of the same call), with the session's replay
+    count up by one a trace and the kernel's launch count not moved; then
+    AOT_REPLAYS replays of varied requests and a request held again (a
+    stale buffer would show). The second (with ``timed``) timed against
+    the ungraphed session: ms per request of 64, in turns (host clock,
+    median of 20), and the device's busy share of a request. Each graphed
+    session's launches are read around its construction alone
+    (:func:`open_aot`), so the twins' launches enter no count. Returns the
+    timing session (None without ``timed``), the checks' and timings'
+    record, the replays by surface, and the constructions' launches
+    summed."""
     from lie_vae_tpu_torch.models import flagship_model
     from lie_vae_tpu_torch.profile_serve import profile_request
     from lie_vae_tpu_torch.serve import (InferenceSession,
@@ -982,11 +1060,16 @@ def aot_phase(impl, counters, counts, images, poses, timed=True):
         poses100 = np.concatenate([poses, poses[:36]])
         held(images, poses, "a request of 64")
         held(ragged, poses100, "a ragged request of 100")
+        # the same call ungraphed launches the kernel: its trace's events
+        # are what a replay's trace holds when the profiler kept it
+        _, twin, _ = _traced_kernels(f"aot_decode_twin_{impl}",
+                                     lambda: ref.decode(poses), kernel)
         before, replays = counts()[key], dict(aot.replays)
-        items, _ = _replay_kernels(f"aot_decode_replay_{impl}",
-                                   lambda: aot.decode(poses), kernel)
+        items, traced, traces = _traced_kernels(
+            f"aot_decode_replay_{impl}", lambda: aot.decode(poses), kernel,
+            floor=twin["events"] / 2)
         if counts()[key] != before or aot.replays["decode"] \
-                != replays["decode"] + 2:
+                != replays["decode"] + 2 * traces:
             raise AssertionError(f"the profiled replays: launches "
                                  f"{counts()[key] - before}, decode replays "
                                  f"{aot.replays['decode'] - replays['decode']}")
@@ -1008,14 +1091,18 @@ def aot_phase(impl, counters, counts, images, poses, timed=True):
           f"captured in {capture_s:.2f} s; against the in-process session "
           f"(64 and 100 rows): decode bit for bit, encode within "
           f"{worst['encode']:.1e}, reconstruct {worst['reconstruct']:.1e}; "
-          f"in the trace of one decode replay: {in_trace} (launch count "
-          f"unmoved, replays counted); held again after {AOT_REPLAYS} "
+          f"in the trace of one decode replay: {in_trace} (trace {traces},"
+          f" {traced['events']:.0f} device events, the ungraphed call's "
+          f"{twin['events']:.0f}; launch count unmoved, replays counted); "
+          f"held again after "
+          f"{AOT_REPLAYS} "
           f"replays of varied requests; replays {aot.replays}")
     replayed = dict(aot.replays)
     aot.close()
     record = {"capture_s": capture_s, "encode_max_diff": worst["encode"],
               "reconstruct_max_diff": worst["reconstruct"],
-              "in_replay_trace": in_trace}
+              "in_replay_trace": in_trace, "replay_traces": traces,
+              "replay_trace_events": [traced["events"], twin["events"]]}
     if not timed:
         return None, record, replayed, built
     fast, built_fast = open_aot(art, counters, counts, key)
@@ -1151,7 +1238,7 @@ def reg_step(weights, batch, noise, impl, rotate, exact=None, cpu=None):
 
 # run by precision_subprocess in a fresh interpreter: torch's own defaults
 _PRECISION_SCRIPT = r"""
-import json, math, sys
+import json, math, os, sys, time
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -1161,6 +1248,15 @@ from lie_vae_tpu_torch.serve import InferenceSession
 from lie_vae_tpu_torch.train import make_optimizer, train_step
 
 ckpt, inputs_path = sys.argv[1:3]
+parent = os.getppid()
+# the profiler's first use takes seconds: made while the parent builds
+with profile(activities=[ProfilerActivity.CUDA]):
+    torch.ones(1, device="cuda").sum().item()
+# the parent moves the inputs into place when it has them
+while not os.path.exists(inputs_path):
+    if os.getppid() != parent:
+        sys.exit("the parent process is gone")
+    time.sleep(0.05)
 with np.load(inputs_path) as f:
     batch, poses, cpu, exact_loss = (f["batch"], f["poses"], f["cpu_decode"],
                                      float(f["exact_loss"]))
@@ -1218,8 +1314,28 @@ print(json.dumps({
 """
 
 
-def precision_subprocess(batch, cpu_session, exact_loss):
-    """In a fresh interpreter (torch's default settings): a flagship
+PRECISION_INPUTS = os.path.join(ROOT, "build", "precision_inputs.npz")
+
+
+def start_precision_child():
+    """The fresh interpreter of :func:`precision_subprocess`, started early:
+    it imports torch and the port and warms the profiler up (seconds of
+    host time, overlapping the builds), then waits for its inputs. Killed
+    at exit if the script ends first."""
+    if os.path.exists(PRECISION_INPUTS):
+        os.remove(PRECISION_INPUTS)
+    os.makedirs(os.path.dirname(PRECISION_INPUTS), exist_ok=True)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _PRECISION_SCRIPT, CHECKPOINT,
+         PRECISION_INPUTS], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def precision_subprocess(proc, batch, cpu_session, exact_loss):
+    """In the fresh interpreter ``proc`` (:func:`start_precision_child`;
+    torch's default settings): a flagship
     session's decode of 64 poses and one flagship train_step (the float32
     training phase's first: the converged weights, ``batch``, its noise),
     with a probe on LieVAE.encode / decode recording the precision settings
@@ -1232,16 +1348,19 @@ def precision_subprocess(batch, cpu_session, exact_loss):
     from lie_vae_tpu_torch.ops import random_group_matrices
     poses = random_group_matrices(
         64, torch.Generator().manual_seed(16), device="cpu").numpy()
-    path = os.path.join(ROOT, "build", "precision_inputs.npz")
-    np.savez(path, batch=batch, poses=poses,
+    tmp = PRECISION_INPUTS + ".tmp.npz"
+    np.savez(tmp, batch=batch, poses=poses,
              cpu_decode=cpu_session.decode(poses), exact_loss=exact_loss)
-    proc = subprocess.run(
-        [sys.executable, "-c", _PRECISION_SCRIPT, CHECKPOINT, path],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    os.replace(tmp, PRECISION_INPUTS)     # whole, as the child polls
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
     if proc.returncode:
         raise AssertionError(f"the fresh interpreter failed: "
-                             f"{proc.stderr[-3000:]}")
-    res = json.loads(proc.stdout.strip().splitlines()[-1])
+                             f"{err[-3000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
     print(f"   torch {res['torch']}: settings (cuDNN conv, cuBLAS matmul) "
           f"before {res['before']}, inside the entry points "
           f"{res['inside']}, after {res['after']}")
@@ -1282,6 +1401,7 @@ def main():
     from lie_vae_tpu_torch.profile_serve import device_us, profile_request
     from lie_vae_tpu_torch.serve import InferenceSession
     from lie_vae_tpu_torch.train import make_optimizer, train_step
+    from torch.profiler import ProfilerActivity, profile
 
     fused = wigner_fused.block_wigner_matrix_multiply_fused
     dens = so3_density.so3_wrapped_log_density_fused
@@ -1304,21 +1424,34 @@ def main():
           f"device(s); {nvcc[-1]}; ninja: {shutil.which('ninja')}")
     done(t0)
 
-    t0 = phase("build (one nvcc per source, all started together)")
+    t0 = phase("build (one nvcc per source and g++ for the host library, "
+               "all started together; beside them the profiler's first use "
+               "and a fresh interpreter's start)")
     sources = ("wigner_chain", "so3_density", "wigner_block")
+    host = "render_native"
     cached = {n: os.path.exists(_build.library_path(n)) for n in sources}
+    cached[host] = os.path.exists(_build.host_library_path(host))
 
     def timed_build(name):
         tb = time.perf_counter()
-        _build.build(name)
+        (_build.build_host if name == host else _build.build)(name)
         return time.perf_counter() - tb
 
     def ptxas(name):
         with open(_build.ptxas_log_path(name)) as f:
             return ptxas_report(f.read(), name)
 
-    with ThreadPoolExecutor(len(sources)) as pool:
-        build_s = dict(zip(sources, pool.map(timed_build, sources)))
+    precision_child = start_precision_child()
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        builds = pool.map(timed_build, sources + (host,))
+        # the profiler's first use takes seconds of host time: made here,
+        # beside nvcc, and not in the first phase that profiles
+        tw = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            torch.ones(1, device=dev).sum().item()
+        profiler_warm_s = time.perf_counter() - tw
+        build_s = dict(zip(sources + (host,), builds))
     ptxas_all = {n: ptxas(n) for n in sources}
     for n in sources:
         print(f"   {n}: {build_s[n]:.2f} s "
@@ -1327,6 +1460,12 @@ def main():
         print(f"   {n}.cu, ptxas (registers, stack frame, spill stores, "
               "spill loads in bytes): " + "; ".join(
                   f"{k} {v}" for k, v in ptxas_all[n].items()))
+    print(f"   {host}: {build_s[host]:.2f} s "
+          f"({'already built' if cached[host] else 'g++'}) -> "
+          f"{_build.host_library_path(host)}")
+    print(f"   beside the builds: the profiler's first use "
+          f"{profiler_warm_s:.2f} s; the fresh interpreter of the precision "
+          "phase started")
     done(t0)
 
     t0 = phase("K1: Wigner chain kernel vs plain chain on the card")
@@ -1575,13 +1714,14 @@ def main():
              ((1, 1), (4, 1), (1, 64), (4, 64), (1, 4103), (4, 16384)))):
         for n, B in shapes:
             worst_v, worst_g = 0.0, 0.0
-            for k in (0, 1, 10):
+            for k in (0, 1, 10, 30):
                 ex, gx = density_case(fn, plain, n, B, k,
                                       (n, B) if what == "log q" else (B,),
                                       seed=10 * k + n)
                 worst_v, worst_g = max(worst_v, ex), max(worst_g, gx)
                 n_rep += 1
-            print(f"   {what}, N={n * B} (n={n}, B={B}), k in (0, 1, 10): "
+            print(f"   {what}, N={n * B} (n={n}, B={B}), k in (0, 1, 10, "
+                  "30): "
                   f"worst value error {worst_v:.3f}, worst gradient error "
                   f"{worst_g:.3f} of the tolerance; twice the same bits")
     print(f"   K3 and K4 repeat bit for bit: {n_rep} cases")
@@ -1622,9 +1762,13 @@ def main():
     vf, st = torch.tensor(v, device=dev).reshape(500, 3), torch.tensor(
         sigma, device=dev)
     iwll_us = device_us(lambda: so3_density._launch_fwd(vf, st, 10, 1e-3))
-    print(f"   log q per sample, n=500 B=1 (the IW-LL's call) k=10: device "
-          f"{iwll_us:.2f} us (bound "
+    iwll30_us = device_us(lambda: so3_density._launch_fwd(vf, st, 30, 1e-3))
+    print(f"   log q per sample, n=500 B=1 (the IW-LL's call): device "
+          f"{iwll_us:.2f} us at k=10 (bound "
           f"{1e3 * density_bound(500, 1, 10, False, per_row=False)[0]:.4f}"
+          f" us), {iwll30_us:.2f} us at k=30, the generic-k instantiation "
+          f"(bound "
+          f"{1e3 * density_bound(500, 1, 30, False, per_row=False)[0]:.4f}"
           " us)")
     done(t0)
 
@@ -1820,17 +1964,87 @@ def main():
           + ", ".join(f"{k} {v:.3f}" for k, v in req_ms.items()))
     done(t0)
 
-    t0 = phase("renders: sphere-cube poses of data_poses/spherecube.npz with "
-               "the port's renderer")
+    t0 = phase("renders: sphere-cube poses of data_poses/spherecube.npz, "
+               "natively, into PNG files; the dataset cold, its disk cache, "
+               "the threaded loader")
     from lie_vae_tpu_torch.cli import gen_spherecube
+    from lie_vae_tpu_torch.data import (BatchLoader, SphereCubeDataset,
+                                        render_spherecube)
+    manifest = os.path.join(ROOT, "data_poses", "spherecube.npz")
+    with np.load(manifest) as f:
+        poses = f["r"][:RENDER_POSES, 0]
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
     tr0 = time.perf_counter()
-    renders = gen_spherecube.generate(
-        RENDER_POSES, DATA_DIR,
-        from_poses=os.path.join(ROOT, "data_poses", "spherecube.npz"))
-    render_s = time.perf_counter() - tr0
+    renders = gen_spherecube.generate(RENDER_POSES, DATA_DIR,
+                                      from_poses=manifest)
+    gen_s = time.perf_counter() - tr0
     if renders.shape != (RENDER_POSES, 64, 64, 3) or renders.max() == 0:
         raise AssertionError(f"renders {renders.shape}, max {renders.max()}")
-    print(f"   {RENDER_POSES} renders in {render_s:.2f} s -> {DATA_DIR}")
+    tr0 = time.perf_counter()
+    native = render_spherecube(poses)
+    native_s = time.perf_counter() - tr0
+    tr0 = time.perf_counter()
+    plain = render_spherecube(poses[:NUMPY_CHECK], backend="numpy")
+    numpy_s = (time.perf_counter() - tr0) * RENDER_POSES / NUMPY_CHECK
+    render_err = float(np.abs(native[:NUMPY_CHECK] - plain).max())
+    bytes_differ = int(((native[:NUMPY_CHECK] * 255).astype(np.uint8)
+                        != (plain * 255).astype(np.uint8)).sum())
+    print(f"   {RENDER_POSES} PNG renders in {gen_s:.3f} s (render and "
+          f"write) -> {DATA_DIR}; s per {RENDER_POSES} images: native "
+          f"{native_s:.4f}, numpy {numpy_s:.3f} (timed on {NUMPY_CHECK})")
+    print(f"   native vs numpy on {NUMPY_CHECK} poses: max |diff| "
+          f"{render_err:.3e} (tol {RENDER_TOL}); {bytes_differ} of "
+          f"{NUMPY_CHECK * 64 * 64 * 3} uint8 bytes differ")
+    if not render_err <= RENDER_TOL:
+        raise AssertionError("the native renderer disagrees with numpy")
+    if not np.array_equal((native * 255).astype(np.uint8), renders):
+        raise AssertionError("the written renders are not the native ones")
+    everything = np.arange(RENDER_POSES)
+    tr0 = time.perf_counter()
+    cold_set = SphereCubeDataset(DATA_DIR)
+    cold = cold_set.gather(everything[:COLD_DECODE])
+    decode_ms = 1e3 * (time.perf_counter() - tr0) / COLD_DECODE
+    tr0 = time.perf_counter()
+    SphereCubeDataset(DATA_DIR).warm_cache()
+    warm_cache_s = time.perf_counter() - tr0
+    tr0 = time.perf_counter()
+    warm = SphereCubeDataset(DATA_DIR)
+    warm.warm_cache()
+    cache_read_s = time.perf_counter() - tr0
+    warm_items = warm.gather(everything)
+    for what, items in (("cold", cold), ("warm", warm_items)):
+        n = len(items[2])
+        if not (np.array_equal(items[2], renders[:n])
+                and np.array_equal(items[1][:COLD_DECODE], cold[1])):
+            raise AssertionError(f"the {what} open's items differ from the "
+                                 "rendered bytes")
+    renders = warm_items[2]       # later phases take the images read back
+    # the threaded loader over the cold open (decoding the rest in its
+    # threads): the serial loader's batches
+    serial = BatchLoader(warm, 64, seed=0, num_threads=0)
+    threaded = BatchLoader(cold_set, 64, seed=0)
+    tr0 = time.perf_counter()
+    threaded_batches = list(threaded)
+    loader_s = time.perf_counter() - tr0
+    for a, b in zip(serial, threaded_batches, strict=True):
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError("the threaded loader's batches differ "
+                                 "from the serial ones")
+    print(f"   dataset cold: {decode_ms:.4f} ms per image decoded ("
+          f"{COLD_DECODE} images); "
+          f"warm_cache (decode and write the disk cache) {warm_cache_s:.3f}"
+          f" s; an open reading it {cache_read_s:.4f} s; cold and warm "
+          f"items equal to the rendered bytes; {threaded.num_threads} "
+          f"loader threads: {len(threaded_batches)} batches of 64 in "
+          f"{loader_s:.3f} s, the serial ones")
+    render_s = {"generate_s": gen_s, "native_s_per_1024": native_s * 1024
+                / RENDER_POSES, "numpy_s_per_1024": numpy_s * 1024
+                / RENDER_POSES, "numpy_max_abs_diff": render_err,
+                "bytes_differ": bytes_differ,
+                "bytes_compared": NUMPY_CHECK * 64 * 64 * 3,
+                "decode_ms_per_image": decode_ms,
+                "warm_cache_s": warm_cache_s, "disk_cache_read_s":
+                cache_read_s, "threaded_loader_s": loader_s}
     done(t0)
 
     weights = compat.load_torch(CHECKPOINT)
@@ -2078,10 +2292,11 @@ def main():
         raise AssertionError(f"the toy set: {toy_len} items, {toy_gen}")
 
     t0 = phase("--config normal (Gaussian latent, MLP decoder) on the "
-               "renders, one epoch")
+               "renders, --device_data, one epoch")
     _, normal_cli_s, normal_launches = cli_run(
         ["--config", "normal", "--dataset", "spherecube", "--data_dir",
-         DATA_DIR, "--epochs", "1"], os.path.join(CLI_DIR, "normal"), (),
+         DATA_DIR, "--epochs", "1", "--device_data"],
+        os.path.join(CLI_DIR, "normal"), (),
         fused_keys + dens_keys + block_keys, None)
     done(t0)
 
@@ -2291,10 +2506,10 @@ def main():
 
     t0 = phase("the CLI on vMF: python -m lie_vae_tpu_torch.cli.main "
                "--dataset spherecube --latent_mode vmfq --kernel_impl "
-               "pallas, one epoch")
+               "pallas --device_data, one epoch")
     _, vmfq_cli_s, vmfq_cli_launches = cli_run(
         ["--dataset", "spherecube", "--latent_mode", "vmfq", "--kernel_impl",
-         "pallas", "--data_dir", DATA_DIR, "--epochs", "1"],
+         "pallas", "--data_dir", DATA_DIR, "--epochs", "1", "--device_data"],
         os.path.join(CLI_DIR, "vmfq"), block_keys,
         fused_keys + dens_keys, "block_launches")
     done(t0)
@@ -2360,7 +2575,8 @@ def main():
     pairs_s = time.perf_counter() - tr0
     if pair_images.shape != (2 * REG_RENDER, 64, 64, 3):
         raise AssertionError(f"pair renders {pair_images.shape}")
-    print(f"   {2 * REG_RENDER} renders in {pairs_s:.2f} s -> {PAIRS_DIR}")
+    print(f"   {2 * REG_RENDER} PNG renders (native) in {pairs_s:.3f} s -> "
+          f"{PAIRS_DIR}")
     done(t0)
 
     from lie_vae_tpu_torch.data import ScPairsDataset
@@ -2471,8 +2687,158 @@ def main():
 
     t0 = phase("precision in a fresh interpreter with torch's defaults: "
                "a session's decode and one train_step")
-    c5 = precision_subprocess(batch, cpu, float(exact[2]["loss"]))
+    c5 = precision_subprocess(precision_child, batch, cpu,
+                              float(exact[2]["loss"]))
     done(t0)
+
+    t0 = phase(f"the analysis: python -m lie_vae_tpu_torch.cli."
+               f"analyze_spherecube on the converged flagship, {N_TRAJ} poses "
+               "a trajectory, on the card ('fused', then --kernel_impl "
+               "pallas) and on the CPU; toy inputs along the circle")
+    from lie_vae_tpu_torch import analysis
+    from lie_vae_tpu_torch.cli import analyze_spherecube
+    argv = ["--torch_checkpoint", CHECKPOINT, "--n_traj", str(N_TRAJ)]
+    card_runs = {}
+    for impl in ("fused", "pallas"):
+        for obj, attr in counters:
+            setattr(obj, attr, 0)
+        ta = time.perf_counter()
+        res, arr, model = analyze_spherecube.main(
+            argv + ["--kernel_impl", impl, "--out_dir",
+                    os.path.join(ANALYSIS_DIR, impl)])
+        card_runs[impl] = (res, arr, model, time.perf_counter() - ta,
+                           counts())
+    analysis_s = {k: v[3] for k, v in card_runs.items()}
+    analysis_launches = card_runs["fused"][4]
+    analysis_pallas_launches = card_runs["pallas"][4]
+    print(f"   launches: 'fused' {analysis_launches}, 'pallas' "
+          f"{analysis_pallas_launches}; on the card "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in analysis_s.items()))
+    # toy observations along the circle through K1 and K5 (L = 6, C = 10),
+    # a path of their own
+    circle = analysis.circle_trajectory(N_TRAJ, axis=(0.3, 0.5, 0.81)).to(dev)
+    harmonics = torch.randn((49, 10), generator=gen)
+    for obj, attr in counters:
+        setattr(obj, attr, 0)
+    toy_in = {impl: analysis.toy_inputs_for_trajectory(circle, harmonics, 6,
+                                                       impl=impl)
+              for impl in ("fused", "pallas")}
+    toy_in_launches = counts()
+    want_toy = block_wigner_apply_zjz(group_matrix_to_eazyz(circle),
+                                      harmonics.to(dev), 6)
+    toy_err = {k: max_rel(v, want_toy)[1] for k, v in toy_in.items()}
+    print(f"   toy inputs along the circle vs the plain chain: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in toy_err.items())
+          + f" (tol {KERNEL_TOL}); launches {toy_in_launches}")
+    if not all(v <= KERNEL_TOL for v in toy_err.values()):
+        raise AssertionError("toy inputs disagree with the plain chain")
+    with torch.no_grad():
+        flagship = flagship_model()
+        flagship.load_state_dict(weights, strict=True)
+        want_state = flagship.state_dict()
+    for impl, (_, _, model, _, _) in card_runs.items():
+        after = model.state_dict()
+        moved = [k for k, v in want_state.items()
+                 if not torch.equal(after[k], v)]
+        modes = {m.training for m in model.modules()}
+        flags = {getattr(m, "deterministic", False) for m in model.modules()}
+        if moved or modes != {True} or flags != {False} \
+                or model.reparameterize[0].k != 10 or model.density_k != 10:
+            raise AssertionError(f"the analysis ({impl}) changed the model: "
+                                 f"{moved}, modes {modes}, flags {flags}")
+    tc = time.perf_counter()
+    c_res, c_arr, _ = analyze_spherecube.main(
+        argv + ["--device", "cpu", "--out_dir",
+                os.path.join(ANALYSIS_DIR, "cpu")])
+    cpu_analysis_s = time.perf_counter() - tc
+    analysis_vs_cpu = {}
+    for impl, (a_res, a_arr, _, _, _) in card_runs.items():
+        d_enc = max(float(np.abs(a_arr[k] - c_arr[k]).max())
+                    for k in ("encodings_circle", "encodings_random_walk"))
+        d_rec = float(np.abs(a_arr["recon_circle"]
+                             - c_arr["recon_circle"]).max())
+        scalars = {f"{t}_{s}": (a_res[f"discontinuity_{t}"][s],
+                                c_res[f"discontinuity_{t}"][s])
+                   for t in ("circle", "random_walk") for s in ("mean", "max")}
+        scalars["recon_error_circle"] = (a_res["recon_error_circle"],
+                                         c_res["recon_error_circle"])
+        d_scalar = max(abs(a - c) / max(abs(c), 1e-12)
+                       for a, c in scalars.values())
+        outliers = {}
+        for t in ("circle", "random_walk"):
+            jumps, _ = analysis.discontinuity_score(c_arr[f"encodings_{t}"])
+            edge = 10.0 * np.median(jumps)
+            outliers[t] = (a_res[f"discontinuity_{t}"]["num_outliers"],
+                           c_res[f"discontinuity_{t}"]["num_outliers"],
+                           int((np.abs(jumps - edge) <= 1e-3 * edge).sum()))
+        print(f"   card ({impl}) vs CPU: encodings max |diff| {d_enc:.3e} "
+              f"(tol {POSE_TOL}), recon strip {d_rec:.3e} (tol {IMAGE_TOL}),"
+              f" discontinuity means/maxima and recon error worst relative "
+              f"{d_scalar:.3e} (tol 1e-3); outliers (card, CPU, jumps within "
+              f"1e-3 of the threshold): {outliers}")
+        if not (d_enc <= POSE_TOL and d_rec <= IMAGE_TOL and d_scalar <= 1e-3
+                and all(abs(a - c) <= e for a, c, e in outliers.values())):
+            raise AssertionError(f"the card's analysis ({impl}) disagrees "
+                                 "with the CPU's")
+        analysis_vs_cpu[impl] = [d_enc, d_rec, d_scalar]
+        for name in ("spherecube_results.json", "SPHERECUBE_ANALYSIS.md",
+                     "encoded_poses.png", "recon.png"):
+            if not os.path.getsize(os.path.join(ANALYSIS_DIR, impl, name)):
+                raise AssertionError(f"the analysis ({impl}) wrote no {name}")
+    a_res = card_runs["fused"][0]
+    print(f"   the CPU's run {cpu_analysis_s:.2f} s; discontinuity (mean / "
+          "max / outliers): " + "; ".join(
+              f"{t} {a_res[f'discontinuity_{t}']['mean']:.4f} / "
+              f"{a_res[f'discontinuity_{t}']['max']:.4f} / "
+              f"{a_res[f'discontinuity_{t}']['num_outliers']}"
+              for t in ("circle", "random_walk"))
+          + f"; recon error (circle) {a_res['recon_error_circle']:.4f}")
+    done(t0)
+
+    t0 = phase(f"the checkpoint's evaluation: python -m lie_vae_tpu_torch."
+               f"cli.eval_checkpoint on the CLI phase's checkpoint, "
+               f"--density_k {' '.join(map(str, EVAL_K))} --ll_n {EVAL_N}, "
+               f"{EVAL_ITEMS} items")
+    from lie_vae_tpu_torch.cli import eval_checkpoint
+    for obj, attr in counters:
+        setattr(obj, attr, 0)
+    te = time.perf_counter()
+    ev = eval_checkpoint.main(
+        ["--density_k", *map(str, EVAL_K), "--ll_n", str(EVAL_N),
+         "--max_items", str(EVAL_ITEMS), "--dataset", "spherecube",
+         "--data_dir", DATA_DIR, "--save_dir", CLI_DIR])
+    eval_s = time.perf_counter() - te
+    eval_launches = counts()
+    print(f"   launches in the path: {eval_launches}; {eval_s:.2f} s; "
+          f"checkpoint step {ev['step']}; sigma {ev['sigma']}")
+    for k in EVAL_K:
+        r = ev["ll"][k]
+        gap = np.asarray(r["items"]) - np.asarray(r["mean_log_weights"])
+        print(f"   k = {k}: IW-LL {r['ll']:.4f}, items above the mean of "
+              f"their own log-weights by {gap.min():.3f} .. {gap.max():.3f}")
+        if not (len(r["items"]) == EVAL_ITEMS and np.isfinite(r["ll"])
+                and (gap >= 0).all()):
+            raise AssertionError(f"IW-LL at k = {k}: {r}")
+    iwll = {k: ev["ll"][k]["ll"] for k in EVAL_K}
+    print(f"   IW-LL(k = 30) - IW-LL(k = 10): {iwll[30] - iwll[10]:.6f}")
+    done(t0)
+    # the kernels each new path must launch, and no training kernel
+    new_paths = {"analysis": (analysis_launches, ("launches",)),
+                 "analysis_pallas": (analysis_pallas_launches,
+                                     ("block_launches",)),
+                 "toy_inputs": (toy_in_launches,
+                                ("launches", "block_launches")),
+                 "eval_checkpoint": (eval_launches,
+                                     ("launches", "density_launches"))}
+    for path, (got, want) in new_paths.items():
+        if any(got[k] for k in ("launches_residuals", "launches_backward",
+                                "density_launches_backward",
+                                "block_launches_backward")):
+            raise AssertionError(f"the {path} path launched a training "
+                                 f"kernel: {got}")
+        if not all(got[k] for k in want):
+            raise AssertionError(f"the {path} path did not launch "
+                                 f"{want}: {got}")
 
     k64, p64, b64, by64, us64 = timing[64]
     k4k, p4k, b4k, _, us4k = timing[4096]
@@ -2540,6 +2906,7 @@ def main():
             kernels[-1]["device_us_n65536"] = dens_us[65536][back]
             if not back:
                 kernels[-1]["device_us_iwll_n500"] = iwll_us
+                kernels[-1]["device_us_iwll_n500_k30"] = iwll30_us
     # each kernel's launches on every path this script drives, counts set
     # to 0 just before the path and read just after
     paths = {f"train_{k}": v[3] for k, v in train_runs.items()}
@@ -2555,6 +2922,7 @@ def main():
     paths["aot_http"] = load_launches
     paths["reg_train"] = reg_launches
     paths["scpairs_cli"] = scp_launches
+    paths.update({k: v[0] for k, v in new_paths.items()})
     # graph replays run the kernels captured in them without their wrapper:
     # counted apart, per graph holding the kernel
     graph_replays = {
@@ -2610,6 +2978,12 @@ def main():
               "aot_load_replays": load_replays, "pairs_render_s": pairs_s,
               "reg_step": reg_runs, "reg_step_worst_share": reg_worst,
               "scpairs_cli_epoch_s": scp_epoch_s, "scpairs_tags": reg_tags,
+              "analysis_s": analysis_s, "analysis_cpu_s": cpu_analysis_s,
+              "analysis": {k: v for k, v in a_res.items()
+                           if not k.startswith("pca_")},
+              "analysis_vs_cpu": analysis_vs_cpu,
+              "toy_inputs_err": toy_err, "eval_s": eval_s, "iwll": iwll,
+              "eval_sigma": ev["sigma"],
               "total_s": time.perf_counter() - t_start}
     print(json.dumps(record))
     print(card)

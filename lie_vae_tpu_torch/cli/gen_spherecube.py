@@ -3,15 +3,21 @@
     python -m lie_vae_tpu_torch.cli.gen_spherecube NUM DIR            # pairs
     python -m lie_vae_tpu_torch.cli.gen_spherecube NUM DIR --singles
 
-Counterpart of the JAX package's ``cli/gen_spherecube.py`` on its numpy
-path. By default it renders NUM consecutive-pose pairs (sc-pairs: a Haar
-pose a and b = a exp(N(0, step_size)) in the algebra, 2 NUM images, pair i
-on rows 2i and 2i + 1); with ``--singles`` NUM Haar-random single poses.
-The port's ray-caster (``data/render.py``) writes them into
-``DIR/images.npy`` (uint8, quantised as the JAX
-generator quantises its PNGs: ``(img * 255).astype(np.uint8)``, a
-truncation) beside the pose manifest ``DIR/_poses.npz``, which is what the
-port's ``SphereCubeDataset`` and ``ScPairsDataset`` read. Nothing is
+Counterpart of the JAX package's ``cli/gen_spherecube.py``, writing what
+it writes. By default it renders NUM consecutive-pose pairs (sc-pairs: a
+Haar pose a and b = a exp(N(0, step_size)) in the algebra, 2 NUM images,
+pair i in files 2i and 2i + 1); with ``--singles`` NUM Haar-random single
+poses. Each image is a PNG file (``data/png.py``) named by its index,
+its place in the pair and its pose quaternion at 4 decimals,
+``{:06d}_{sub}_{q0:.4f}_{q1:.4f}_{q2:.4f}_{q3:.4f}.png``, as the JAX
+generator names them and the datasets of both packages parse them back,
+quantised as the JAX generator quantises (``(img * 255).astype(np.uint8)``,
+a truncation); the pose manifest ``DIR/_poses.npz`` (``r``, ``q``, ``meta``,
+``step_size``, ``style``) lies beside them. The native renderer
+(``data/render.py``, built with ``g++``) renders them; ``--backend numpy``
+takes the plain ray-caster, ``--blender`` Blender
+(``data/blender_spherecube.py``, through ``blender --background --python
+<script> -- <spec.json>``, as the JAX generator runs it). Nothing is
 downloaded.
 
 The poses come, in this order, from ``--from_poses``; else from the tracked
@@ -20,23 +26,33 @@ poses of the asked kind (``data_poses/spherecube.npz``, 2048 single poses,
 and ``spherecube-v2-32k.npz``, 32768), whose first NUM are used; else from
 the seeded sampler (numpy's PCG64, as the JAX generator draws them, so one
 seed gives the JAX generator's poses). ``--style`` defaults to the
-manifest's own style (v1 without one). PNG output and the Blender backend
-are not ported (ROADMAP.md, Queue A, A3n).
+manifest's own style (v1 without one).
 
 Usage:
   python -m lie_vae_tpu_torch.cli.gen_spherecube 2048 data/spherecube --singles
   python -m lie_vae_tpu_torch.cli.gen_spherecube 1024 data/sc-pairs
 """
 import argparse
+import json
 import os
+import subprocess
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from lie_vae_tpu_torch.data._np_ops import (
     expmap_np, group_matrix_to_quaternions_np,
     quaternions_to_group_matrix_np, random_quaternions_np)
+from lie_vae_tpu_torch.data.png import write_png
 from lie_vae_tpu_torch.data.render import render_spherecube
-from lie_vae_tpu_torch.data.shapes import IMAGES, POSES
+
+POSES = "_poses.npz"
+# the pool that encodes and writes the PNG files
+WRITE_THREADS = 8
+BLENDER_SCRIPT = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data",
+    "blender_spherecube.py")
 
 POSE_SETS_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(
@@ -44,6 +60,13 @@ POSE_SETS_DIR = os.path.join(
 
 
 STEP_SIZE = 2 * np.pi / 60
+
+
+def pose_name(index, sub, q):
+    """The file name of pose ``sub`` of item ``index`` with quaternion
+    ``q``, as the JAX generator names it."""
+    return "{:06d}_{}_{:.4f}_{:.4f}_{:.4f}_{:.4f}.png".format(
+        index, sub, *[float(x) for x in q])
 
 
 def sample_poses(num, step_size, pairs, seed):
@@ -73,19 +96,50 @@ def pinned_manifest(out_dir, num, pairs=False):
         else None
 
 
-def render_images(r, size=64, style="v1", batch=256):
+def render_images(r, size=64, style="v1", batch=256, backend="auto"):
     """uint8 (N, size, size, 3) renders of the (N, 3, 3) rotations."""
     out = np.empty((len(r), size, size, 3), np.uint8)
     for i in range(0, len(r), batch):
-        imgs = render_spherecube(r[i:i + batch], size=size, style=style)
+        imgs = render_spherecube(r[i:i + batch], size=size, style=style,
+                                 backend=backend)
         out[i:i + batch] = (imgs * 255).astype(np.uint8)
     return out
 
 
+def write_pngs(images, names, out_dir):
+    """Write each uint8 image to ``out_dir/<name>`` (zlib releases the GIL:
+    the files are encoded by a pool of WRITE_THREADS threads)."""
+    with ThreadPoolExecutor(WRITE_THREADS) as pool:
+        for f in [pool.submit(write_png, os.path.join(out_dir, n), img)
+                  for img, n in zip(images, names)]:
+            f.result()
+
+
+def render_blender(r, names, out_dir, size):
+    """Render the (N, 3, 3) rotations into ``out_dir/<name>`` with Blender:
+    a JSON spec of the rotation matrices (convention-unambiguous, unlike
+    quaternion layouts), the names, the directory and the size, handed to
+    ``blender --background --python <script> -- <spec>``."""
+    with tempfile.NamedTemporaryFile("w", suffix=".json",
+                                     delete=False) as f:
+        json.dump({"matrices": np.asarray(r).reshape(-1, 3, 3).tolist(),
+                   "names": list(names),
+                   "out_dir": os.path.abspath(out_dir), "size": size}, f)
+        spec = f.name
+    try:
+        subprocess.check_call(["blender", "--background", "--python",
+                               BLENDER_SCRIPT, "--", spec])
+    finally:
+        os.unlink(spec)
+
+
 def generate(num, out_dir, size=64, seed=0, style=None, from_poses=None,
-             pairs=False, step_size=STEP_SIZE):
+             pairs=False, step_size=STEP_SIZE, backend="auto",
+             use_blender=False):
     """Render ``num`` single poses, or with ``pairs`` ``num`` pairs, into
-    ``out_dir``; returns the uint8 images (num * P, size, size, 3)."""
+    PNG files in ``out_dir`` with the renderer's ``backend`` (or Blender);
+    returns the uint8 images (num * P, size, size, 3), file order (None
+    from Blender)."""
     if from_poses is None:
         from_poses = pinned_manifest(out_dir, num, pairs)
     meta_style = None
@@ -104,16 +158,23 @@ def generate(num, out_dir, size=64, seed=0, style=None, from_poses=None,
     else:
         r_np, q_np = sample_poses(num, step_size, pairs, seed)
     style = style or meta_style or "v1"
-    images = render_images(r_np.reshape(-1, 3, 3), size=size, style=style)
+    if use_blender and style != "v1":
+        raise ValueError(f"style={style!r} is a ray-caster look; the Blender "
+                         "backend renders the v1 scene only")
+    names = [pose_name(i, j, q_np[i, j]) for i in range(num)
+             for j in range(r_np.shape[1])]
     os.makedirs(out_dir, exist_ok=True)
     np.savez_compressed(
         os.path.join(out_dir, POSES), r=r_np, q=q_np,
         meta=np.array([num, r_np.shape[1], size, seed], dtype=np.int64),
         step_size=np.float64(step_size if pairs else 0.0),
         style=np.bytes_(style))
-    tmp = os.path.join(out_dir, IMAGES + ".tmp.npy")
-    np.save(tmp, images)
-    os.replace(tmp, os.path.join(out_dir, IMAGES))
+    if use_blender:
+        render_blender(r_np, names, out_dir, size)
+        return None
+    images = render_images(r_np.reshape(-1, 3, 3), size=size, style=style,
+                           backend=backend)
+    write_pngs(images, names, out_dir)
     return images
 
 
@@ -132,10 +193,18 @@ def main(argv=None):
                         help="render look (default: the manifest's, else v1)")
     parser.add_argument("--from_poses", default=None,
                         help="re-render exactly this pose manifest")
+    parser.add_argument("--backend", choices=["auto", "native", "numpy"],
+                        default="auto",
+                        help="renderer: the native one (auto, native) or "
+                             "the numpy ray-caster")
+    parser.add_argument("--blender", action="store_true",
+                        help="render with Blender (a blender binary on "
+                             "PATH) instead of the ray-caster")
     args = parser.parse_args(argv)
     generate(args.num, args.dir, size=args.size, seed=args.seed,
              style=args.style, from_poses=args.from_poses,
-             pairs=not args.singles, step_size=args.step_size)
+             pairs=not args.singles, step_size=args.step_size,
+             backend=args.backend, use_blender=args.blender)
     print(f"Wrote {'poses' if args.singles else 'pairs'} to {args.dir}")
 
 

@@ -1,21 +1,30 @@
-"""Host-side batch loader.
+"""Host-side batch loader with threaded prefetch.
 
 Counterpart of the JAX package's ``data/loader.py``, with its index
 semantics kept bit for bit: a shuffled epoch is the permutation
 ``np.random.default_rng(seed + epoch)`` draws, batches are consecutive
 slices of it, ``drop_last`` drops the ragged tail, and the epoch counter
 advances once per pass. Batches are single contiguous numpy arrays (uint8
-images), moved to the device by the caller in one copy. The port's
-datasets hold their images in memory, so there is no decode to overlap and
-no prefetch thread; the JAX loader's multi-host sharding belongs to the
-data-parallel path (ROADMAP.md, Queue A, A9).
+images), moved to the device by the caller in one copy.
+
+With ``num_threads`` > 0 (default: the dataset's ``num_workers``, 5 for
+the image datasets, 0 for the toy set) the batches are gathered by a
+thread pool with a bounded lookahead of ``prefetch + num_threads``
+batches, so image decoding (zlib and the PNG unfilter release the GIL)
+overlaps the device's work; they are yielded in the serial order. The
+JAX loader's multi-host sharding belongs to the data-parallel path
+(ROADMAP.md, Queue A, A9).
 """
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from queue import Queue
+
 import numpy as np
 
 
 class BatchLoader:
     def __init__(self, dataset, batch_size, shuffle=True, drop_last=True,
-                 seed=0):
+                 seed=0, num_threads=None, prefetch=4):
         if batch_size <= 0:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
         self.dataset = dataset
@@ -24,6 +33,10 @@ class BatchLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.epoch = 0
+        if num_threads is None:
+            num_threads = getattr(dataset, "num_workers", 0)
+        self.num_threads = num_threads
+        self.prefetch = prefetch
         self.prep = getattr(dataset, "prep_batch", lambda b: b)
 
     def __len__(self):
@@ -47,5 +60,42 @@ class BatchLoader:
     def __iter__(self):
         batches = self._index_batches()
         self.epoch += 1
-        for idx in batches:
-            yield self.prep(self.dataset.gather(idx))
+        gather = self.dataset.gather
+
+        if self.num_threads <= 0:
+            for idx in batches:
+                yield self.prep(gather(idx))
+            return
+
+        # bounded-lookahead threaded prefetch: a semaphore caps the number
+        # of batches in flight (pool.map would gather the whole epoch
+        # at once whatever the queue's bound)
+        q = Queue()
+        sentinel = object()
+        window = threading.Semaphore(self.prefetch + self.num_threads)
+        stop = threading.Event()
+
+        def produce():
+            with ThreadPoolExecutor(self.num_threads) as pool:
+                for idx in batches:
+                    if stop.is_set():
+                        break
+                    window.acquire()
+                    q.put(pool.submit(gather, idx))
+            q.put(sentinel)
+
+        t = threading.Thread(target=produce, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is sentinel:
+                    break
+                out = item.result()
+                window.release()
+                yield self.prep(out)
+        finally:
+            stop.set()
+            # unblock the producer if the consumer stopped early
+            window.release()
+            t.join()

@@ -1,8 +1,9 @@
-"""Software renderer for the sphere-cube object: the numpy ray-caster of the
-JAX package's ``data/render.py``, copied (its native C++ backend is not
-ported; ROADMAP.md, Queue A, A3n). A dependency-free stand-in
-for the reference's Blender pipeline (blender_spherecube.py + cube.blend,
-invoked via subprocess at gen_spherecube_pairs.py:30-32).
+"""Software renderer for the sphere-cube object: the JAX package's
+``data/render.py``, its numpy ray-caster copied and its native C++ backend
+(``csrc/render_native.cpp``, built with ``g++`` into ``build/native/``)
+beside it. A dependency-free stand-in for the reference's Blender
+pipeline (blender_spherecube.py + cube.blend, invoked via subprocess at
+gen_spherecube_pairs.py:30-32).
 
 The reference renders a cube-with-sphere object rotated by pose quaternions
 to 64x64 RGB images named by the quaternion. This renderer produces the same
@@ -57,16 +58,30 @@ _LIGHT_V2 = np.array([0.4, -0.75, 0.55], dtype=np.float32)
 _LIGHT_DIR_V2 = _LIGHT_V2 / np.linalg.norm(_LIGHT_V2)
 
 
-def render_spherecube(rotations, size=64, style="v1"):
+def render_spherecube(rotations, size=64, style="v1", backend="auto"):
     """Render the sphere-cube under one or more rotations.
 
     rotations: (N, 3, 3) or (3, 3) world-from-object rotation matrices.
     style: 'v1' (round-1 flat look) | 'v2' (high-pose-contrast textures).
-    Returns float32 images (N, size, size, 3) in [0, 1], as the JAX
-    package's ``render_spherecube(..., backend='numpy')`` renders them.
+    backend: 'auto' or 'native' (the C++ renderer) | 'numpy' (the plain
+    ray-caster). Unlike the JAX package, whose 'auto' falls back to numpy
+    when ``g++`` fails, 'auto' here is the native renderer and a failed
+    build raises: a silent fallback would let a timed render measure the
+    wrong renderer. Returns float32 images (N, size, size, 3) in [0, 1],
+    as the JAX package's ``render_spherecube`` renders them with the same
+    backend. The native renderer runs in float64 throughout, the numpy one
+    partly in float32: they agree within 1e-4, and a few bytes of the
+    ``(img * 255).astype(np.uint8)`` quantisation differ.
     """
     if style not in ("v1", "v2"):
         raise ValueError(f"unknown render style {style!r}")
+    if backend not in ("auto", "native", "numpy"):
+        raise ValueError(f"unknown render backend {backend!r}")
+    if backend != "numpy":
+        from lie_vae_tpu_torch.data import _native
+        single = np.ndim(rotations) == 2
+        out = _native.render(rotations, size, style)
+        return out[0] if single else out
     fov = _FOV_SCALE if style == "v1" else _FOV_SCALE_V2
     ambient = _AMBIENT if style == "v1" else _AMBIENT_V2
 

@@ -1,95 +1,237 @@
-"""Sphere-cube image datasets as the port's generator writes them.
+"""Image-folder datasets with pose labels parsed from filenames.
 
-Counterpart of ``ShapeDataset``, ``SphereCubeDataset`` and
-``ScPairsDataset`` in the JAX package's ``data/shapes.py``. The JAX datasets read a directory of PNG
-files named by their pose quaternion; the port's read what
-``cli/gen_spherecube.py`` writes, so that no image library is needed:
+Counterpart of the JAX package's ``data/shapes.py`` (reference:
+lie_vae/experiments/datasets.py:15-127), with its layout and semantics, so
+a directory rendered by either package, or by the reference's Blender
+pipeline, reads the same in both: the index is ``files.txt`` or a
+recursive jpg/png glob, sorted; ``subsample`` draws with numpy seed 0,
+the global state restored; the pose label is the quaternion in the file
+name (the same regex); items are decoded once into a uint8 cache, and
+``warm_cache`` backs that cache with the JAX package's disk cache
+(``_decoded_cache_v2.npz``: the same key and arrays, so a cache that one
+package writes the other reads).
 
-- ``images.npy``: uint8 (N, 64, 64, 3), each image quantised as the JAX
-  generator writes its PNGs, ``(img * 255).astype(np.uint8)``;
-- ``_poses.npz``: the pose manifest (``r`` (N, P, 3, 3), ``q`` (N, P, 4),
-  ``meta``, ``step_size``, ``style``), as the JAX generator writes it: P = 1
-  for single poses, P = 2 for the consecutive-pose pairs of sc-pairs, whose
-  images are rows (2i, 2i + 1) of ``images.npy``.
-
-Item i is the JAX dataset's item i: its files sort in pose order. The pose
-label is the quaternion read back at the 4 decimals of the JAX file name,
-then mapped to a rotation. ``subsample`` draws the same items (numpy seed 0
-with the global state saved and restored). Batches come out as
-``(names, poses, images)`` with uint8 images; the train step scales them to
-[0, 1] on the device.
+PNG files are decoded by the port's own reader (``data/png.py``), which
+gives the array PIL gives; ``.jpg`` files through PIL when it imports,
+else they raise. Batches come out as ``(names, poses, images)`` with
+uint8 images; the train step scales them to [0, 1] on the device.
 """
+import hashlib
 import os
+import re
+import zipfile
+from glob import glob
 
 import numpy as np
 
 from lie_vae_tpu_torch.data._np_ops import quaternions_to_group_matrix_np
+from lie_vae_tpu_torch.data.png import read_png
 
-IMAGES = "images.npy"
-POSES = "_poses.npz"
+_QUAT_RE = re.compile(r"-?[01]\.[0-9]{4}")
+_NAME_RE = re.compile(r"([A-z0-9]+)\.obj")
 
 
-def pose_labels(q):
-    """(N, 4) quaternions -> (N, 3, 3) float32 rotations, the quaternion
-    first rounded as the JAX dataset reads it back from its file names
-    (``'{:.4f}'``)."""
-    q = np.asarray([[float(f"{float(x):.4f}") for x in row]
-                    for row in np.asarray(q).reshape(-1, 4)])
-    return quaternions_to_group_matrix_np(q)
+def filename_to_quaternion(filename):
+    """Pose label from filename: four '-x.xxxx' floats.
+
+    Reference: datasets.py:67-72 (same regex).
+    """
+    matches = _QUAT_RE.findall(filename)
+    if len(matches) != 4:
+        raise ValueError("No quaternion found in " + filename)
+    return [float(x) for x in matches]
+
+
+def filename_to_name(filename):
+    match = _NAME_RE.search(filename)
+    if match is None:
+        raise ValueError("Could not find object id from filename "
+                         + filename)
+    return match.group(1)
+
+
+def count_renders(directory):
+    """Number of rendered images under ``directory`` (0 if absent).
+
+    Counts only jpg/png files: dataset directories also hold other files
+    (the pose manifest, the persistent decode cache).
+    """
+    if not os.path.isdir(directory):
+        return 0
+    return (len(glob(os.path.join(directory, "**/*.jpg"), recursive=True))
+            + len(glob(os.path.join(directory, "**/*.png"), recursive=True)))
+
+
+def _decode(path):
+    """The uint8 array of an image file, as ``np.asarray`` of PIL's image."""
+    if path.lower().endswith(".png"):
+        return read_png(path)
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(
+            f"{path}: no decoder for this format (the port reads PNG "
+            "itself; JPEG needs PIL, which is not installed)") from e
+    return np.asarray(Image.open(path))
+
+
+def _load_image(path, rgb):
+    img = np.asarray(_decode(path), dtype=np.float32) / 255.0
+    if rgb:
+        return img[:, :, :3]                       # HWC
+    if img.ndim == 3:                              # mean if RGB
+        img = img.mean(-1)
+    return img[:, :, None]                         # HW1
 
 
 class ShapeDataset:
-    """Reference: ShapeDataset, datasets.py:15-84. Greyscale unless the
-    subclass sets ``rgb``: then the channel mean of each image, as the JAX
-    dataset loads a greyscale item."""
+    """Reference: ShapeDataset, datasets.py:15-84.
+
+    ``cache=True`` (default) decodes each image once into uint8 and keeps
+    it. The cache is a dict that the loader's threads fill; each fill is
+    one assignment of a finished tuple, so a reader sees an item whole or
+    not at all.
+    """
+    num_workers = 5
     rgb = False
     single_id = False
 
-    def __init__(self, directory, subsample=1.0):
+    def __init__(self, directory, subsample=1.0, cache=True):
         self.directory = directory
-        path = os.path.join(directory, IMAGES)
-        if not os.path.exists(path):
+        self._cache_enabled = cache
+        self._cache = {}
+        index_path = os.path.join(directory, "files.txt")
+        if os.path.exists(index_path):
+            with open(index_path) as f:
+                self.files = f.read().splitlines()
+            self.root = directory
+        else:
+            self.files = glob(os.path.join(directory, "**/*.jpg"),
+                              recursive=True)
+            self.files += glob(os.path.join(directory, "**/*.png"),
+                               recursive=True)
+            self.root = None
+        self.files = sorted(self.files)
+        if not self.files:
             raise FileNotFoundError(
-                f"{path} not found: render the dataset first, e.g. "
-                "python -m lie_vae_tpu_torch.cli.gen_spherecube 2048 "
+                f"no images under {directory}: render the dataset first, "
+                "e.g. python -m lie_vae_tpu_torch.cli.gen_spherecube 2048 "
                 f"{directory} --singles")
-        images = np.load(path)
-        with np.load(os.path.join(directory, POSES)) as f:
-            q = f["q"].reshape(-1, 4)
-        if images.dtype != np.uint8 or images.ndim != 4 \
-                or images.shape[0] != q.shape[0]:
-            raise ValueError(f"{path}: expected uint8 (N, H, W, 3) for "
-                             f"{q.shape[0]} poses, got {images.dtype} "
-                             f"{images.shape}")
-        if not self.rgb:
-            images = np.round((images.astype(np.float32) / 255.0).mean(-1)
-                              * 255.0).astype(np.uint8)[..., None]
-        self.images = images
-        self.poses = pose_labels(q)
-        self.indices = np.arange(len(images))
+
         if subsample < 1:
             # identical seed semantics to datasets.py:33-37
             state = np.random.get_state()
             np.random.seed(0)
-            self.indices = np.random.choice(
-                self.indices, int(len(self.indices) * subsample),
-                replace=False)
+            self.files = list(np.random.choice(
+                self.files, int(len(self.files) * subsample), replace=False))
             np.random.set_state(state)
 
     def __len__(self):
-        return len(self.indices)
+        return len(self.files)
+
+    def _item_by_file_index(self, idx):
+        idx = int(idx)
+        if self._cache_enabled:
+            hit = self._cache.get(idx)
+            if hit is not None:
+                name, group_el, img_u8 = hit
+                return name, group_el, img_u8.astype(np.float32) / 255.0
+        name, group_el, image = self.load_file(self.files[idx], self.root)
+        if self._cache_enabled:
+            self._cache[idx] = (name, group_el,
+                                np.round(image * 255.0).astype(np.uint8))
+        return name, group_el, image
 
     def __getitem__(self, idx):
-        i = self.indices[idx]
-        name = 0 if self.single_id else str(i)
-        return name, self.poses[i], self.images[i].astype(np.float32) / 255.0
+        return self._item_by_file_index(idx)
+
+    @classmethod
+    def load_file(cls, filename, root):
+        path = os.path.join(root, filename) if root else filename
+        image = _load_image(path, cls.rgb)
+        quaternion = filename_to_quaternion(filename)
+        group_el = quaternions_to_group_matrix_np(np.asarray(quaternion))
+        name = 0 if cls.single_id else filename_to_name(filename)
+        return name, group_el, image
+
+    # the JAX package's cache file; v2 stores the pose labels in the dtype
+    # the fresh decode gives them, so warm and cold opens agree bit for bit
+    _DISK_CACHE_NAME = "_decoded_cache_v2.npz"
+
+    def _files_key(self):
+        # filenames as listed + size + mtime: re-rendered pixels under the
+        # same names must invalidate the cache too
+        parts = []
+        for f in self.files:
+            path = os.path.join(self.root, f) if self.root else f
+            try:
+                st = os.stat(path)
+                parts.append(f"{f}|{st.st_size}|{st.st_mtime_ns}")
+            except OSError:
+                parts.append(f)
+        return hashlib.sha256("\n".join(parts).encode()).hexdigest()
+
+    def _disk_cache_path(self):
+        if not self.directory or not os.path.isdir(self.directory):
+            return None
+        return os.path.join(self.directory, self._DISK_CACHE_NAME)
+
+    def warm_cache(self, persist=True):
+        """Fill the uint8 decode cache for every file at once, backed by a
+        persistent bulk cache on disk (``<dir>/_decoded_cache_v2.npz``).
+
+        The cache is keyed by a hash of the (post-subsample) file list,
+        each file's size and mtime, so a stale or foreign cache never
+        serves wrong pixels: it is decoded again and overwritten. With
+        ``persist`` a fresh decode writes the cache (atomically).
+        """
+        if not self._cache_enabled or len(self._cache) >= len(self.files):
+            return
+        n = len(self.files)
+        path = self._disk_cache_path()
+        key = self._files_key()
+        if path and os.path.exists(path):
+            try:
+                with np.load(path, allow_pickle=False) as z:
+                    if str(z["key"]) == key:
+                        imgs, gs, names = z["imgs"], z["gs"], z["names"]
+                        for i in range(n):
+                            nm = (int(names[i]) if self.single_id
+                                  else str(names[i]))
+                            self._cache[i] = (nm, gs[i], imgs[i])
+                        return
+            except (OSError, EOFError, ValueError, KeyError,
+                    zipfile.BadZipFile):
+                pass   # unreadable or stale cache: decode again below
+        for i in range(n):
+            self._gather_one(i)
+        if persist and path:
+            names, gs, imgs = zip(*(self._cache[i] for i in range(n)))
+            tmp = path + ".tmp.npz"   # ends in .npz so savez keeps the name
+            np.savez(tmp, key=np.asarray(key),
+                     names=np.asarray(
+                         names, dtype=np.int32 if self.single_id else None),
+                     gs=np.stack(gs, 0),
+                     imgs=np.stack(imgs, 0))
+            os.replace(tmp, path)
 
     def gather(self, indices):
         """Batch fetch: (names, poses (B, 3, 3), uint8 images (B, H, W, C))."""
-        rows = self.indices[np.asarray(indices)]
-        names = (np.zeros(len(rows), np.int32) if self.single_id
-                 else rows.astype(str).astype(object))
-        return names, self.poses[rows], self.images[rows]
+        names, gs, imgs = zip(*[self._gather_one(i) for i in indices])
+        return (np.asarray(names, dtype=object if not self.single_id
+                           else np.int32),
+                np.stack(gs, 0), np.stack(imgs, 0))
+
+    def _gather_one(self, idx):
+        idx = int(idx)
+        if self._cache_enabled:
+            hit = self._cache.get(idx)
+            if hit is None:
+                self._item_by_file_index(idx)   # fills the cache
+                hit = self._cache[idx]
+            return hit
+        name, g, img = self.load_file(self.files[idx], self.root)
+        return name, g, np.round(img * 255.0).astype(np.uint8)
 
     @staticmethod
     def prep_batch(batch):
@@ -106,7 +248,7 @@ class SphereCubeDataset(ShapeDataset):
 
 
 class ScPairsDataset(ShapeDataset):
-    """Consecutive-pose pairs: item i is images (2i, 2i + 1) stacked on a
+    """Consecutive-pose pairs: item i is files (2i, 2i + 1) stacked on a
     pair axis; ``prep_batch`` flattens the pairs into the batch. Reference:
     datasets.py:95-127. ``subsample`` keeps the first fraction of a numpy
     seed-0 permutation of the pairs, numpy's global state restored."""
@@ -115,7 +257,7 @@ class ScPairsDataset(ShapeDataset):
 
     def __init__(self, directory="data/sc-pairs", subsample=1.0):
         super().__init__(directory)
-        n = len(self.images) // 2
+        n = len(self.files) // 2
         if subsample < 1:
             state = np.random.get_state()
             np.random.seed(0)
@@ -124,18 +266,28 @@ class ScPairsDataset(ShapeDataset):
         else:
             self.indices = np.arange(n)
 
+    def __len__(self):
+        return len(self.indices)
+
     def __getitem__(self, idx):
-        rows = 2 * self.indices[idx] + np.arange(2)
-        return (np.zeros(2, np.int32), self.poses[rows],
-                self.images[rows].astype(np.float32) / 255.0)
+        idx = self.indices[idx]
+        names, gs, imgs = zip(*[self._item_by_file_index(j)
+                                for j in (2 * idx, 2 * idx + 1)])
+        return (np.asarray(names, dtype=np.int32),
+                np.stack(gs, 0), np.stack(imgs, 0))
 
     def gather(self, indices):
         """Batch fetch: (names (B, 2), poses (B, 2, 3, 3), uint8 images
         (B, 2, H, W, C))."""
-        rows = (2 * self.indices[np.asarray(indices)][:, None]
-                + np.arange(2))
-        return (np.zeros(rows.shape, np.int32), self.poses[rows],
-                self.images[rows])
+        names, gs, imgs = zip(*[self._gather_pair(i) for i in indices])
+        return np.stack(names, 0), np.stack(gs, 0), np.stack(imgs, 0)
+
+    def _gather_pair(self, idx):
+        idx = self.indices[idx]
+        names, gs, imgs = zip(*[self._gather_one(j)
+                                for j in (2 * idx, 2 * idx + 1)])
+        return (np.asarray(names, dtype=np.int32), np.stack(gs, 0),
+                np.stack(imgs, 0))
 
     @staticmethod
     def prep_batch(batch):

@@ -9,5 +9,5 @@ from lie_vae_tpu_torch.ops.so3 import (  # noqa: F401
 )
 from lie_vae_tpu_torch.ops.wigner import (  # noqa: F401
     j_matrix, z_rot_mat, block_wigner_matrix, block_wigner_apply_zjz,
-    block_wigner_matrix_multiply,
+    block_wigner_matrix_multiply, wigner_d_matrix,
 )

@@ -7,7 +7,8 @@ copy of the JAX package's asset) and ``Z(t)`` the sparse real z-rotation,
 ``(Z(t) x)_i = cos(f_i t) x_i + sin(f_i t) x_rev(i)`` with row frequency
 ``f_i`` and ``rev`` the reversal within the degree block.
 
-- :func:`block_wigner_matrix` builds the dense (B, S, S) matrix;
+- :func:`block_wigner_matrix` builds the dense (B, S, S) matrix, and
+  :func:`wigner_d_matrix` one degree's block of it;
 - :func:`block_wigner_apply_zjz` applies the chain to a spectrum without
   forming W, and is the plain version the CUDA kernel is held against;
 - :func:`block_wigner_matrix_multiply` dispatches between them and the
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 __all__ = [
-    "j_matrix", "z_rot_mat", "block_wigner_matrix",
+    "j_matrix", "z_rot_mat", "block_wigner_matrix", "wigner_d_matrix",
     "block_wigner_apply_zjz", "block_wigner_matrix_multiply",
 ]
 
@@ -124,6 +125,33 @@ def block_wigner_matrix(angles, max_degree, dtype=None):
     W = tmp * cg[:, None, :] - tmp[:, :, rev] * sg[:, None, :]
     S = (L + 1) ** 2
     return W.reshape(batch_shape + (S, S))
+
+
+def wigner_d_matrix(angles, degree, dtype=None):
+    """Single-degree real Wigner-D block, (..., 2l+1, 2l+1): the degree-l
+    diagonal block of :func:`block_wigner_matrix`, the chain
+    Z(a) J Z(b) J Z(g) (lie_vae/lie_tools.py:211-223), by trig synthesis."""
+    if angles.shape[-1] != 3:
+        raise ValueError("angles must be (..., 3) ZYZ Euler angles")
+    batch_shape = angles.shape[:-1]
+    dtype = dtype or angles.dtype
+    angles = angles.reshape(-1, 3).to(dtype)
+    dev = angles.device
+    l, dim, o = degree, 2 * degree + 1, degree * degree
+    # the degree-l coefficients are the degree-l diagonal block of the
+    # packed tensor (the same m-basis when max_degree == l)
+    C = torch.as_tensor(_coeffs(l)[2][:, o:o + dim, o:o + dim], dtype=dtype,
+                        device=dev)
+    freqs = torch.arange(l, -l - 1, -1, dtype=dtype, device=dev)
+    rev = torch.arange(dim - 1, -1, -1, device=dev)
+
+    a, b, g = angles.unbind(-1)
+    d = torch.einsum("bm,mse->bse", _trig_basis(b, l), C)
+    ca, sa = torch.cos(freqs * a[:, None]), torch.sin(freqs * a[:, None])
+    tmp = ca[:, :, None] * d + sa[:, :, None] * d[:, rev, :]
+    cg, sg = torch.cos(freqs * g[:, None]), torch.sin(freqs * g[:, None])
+    W = tmp * cg[:, None, :] - tmp[:, :, rev] * sg[:, None, :]
+    return W.reshape(batch_shape + (dim, dim))
 
 
 def block_wigner_apply_zjz(angles, spectrum, max_degree, transpose=False):

@@ -230,7 +230,13 @@ class UnsupervisedExperiment:
     def _cache_device(self, dataset):
         """The dataset's inputs, all of them, on the model's device (uint8
         images, or the toy spectra as they are), and the rows an item
-        (2 for a paired dataset, whose ``prep_batch`` flattens the pairs)."""
+        (2 for a paired dataset, whose ``prep_batch`` flattens the pairs).
+        An image dataset decodes every file first through its
+        ``warm_cache`` (one bulk read of its disk cache after the first
+        decode)."""
+        warm = getattr(dataset, "warm_cache", None)
+        if warm is not None:
+            warm()
         images = dataset.prep_batch(dataset.gather(np.arange(len(dataset))))
         rows = torch.as_tensor(np.asarray(images[-1]), device=self.device)
         return rows, rows.shape[0] // len(dataset)

@@ -24,9 +24,10 @@ the sc-pairs data and the ``--config scpairs reg`` CLI.
   steps (the statistics after both encoder passes of each step: the port's
   BatchNorm counts two batches a step);
 - ``ScPairsDataset`` and ``prep_batch``: pairs rendered by the JAX
-  generator (PNG files, the numpy ray-caster) and by the port's from the
-  same seed, read by each package's dataset, whole and subsampled: equal
-  items, poses and pair order, flattened to rows (2i, 2i + 1);
+  generator (PIL's PNG files) and by the port's (its own PNG files) from
+  the same seed, both with the numpy ray-caster, read by each package's
+  dataset, whole and subsampled: equal items, poses and pair order,
+  flattened to rows (2i, 2i + 1), the files of pair i;
   ``sample_poses(pairs=True)`` bit for bit against the JAX sampler; the
   port's ``--singles`` output unchanged;
 - ``cli.main --config scpairs reg`` end to end on the CPU at a tiny size:
@@ -56,6 +57,7 @@ from lie_vae_tpu_torch.cli import gen_spherecube
 from lie_vae_tpu_torch.cli import main as cli_main
 from lie_vae_tpu_torch.compat import state_dict_from_jax
 from lie_vae_tpu_torch.data import ScPairsDataset, SphereCubeDataset
+from lie_vae_tpu_torch.data.png import read_png
 from lie_vae_tpu_torch.models import LieVAE
 from lie_vae_tpu_torch.train import make_optimizer, train_step
 from test_torch_port_models import (  # noqa: F401
@@ -316,7 +318,7 @@ def pair_sets(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jrender, "_NATIVE", None)        # the numpy ray-caster
         jgen.generate(NP, jdir, 2 * np.pi / 60, pairs=True, seed=3)
-    gen_spherecube.main([str(NP), tdir, "--seed", "3"])
+    gen_spherecube.main([str(NP), tdir, "--seed", "3", "--backend", "numpy"])
     return jdir, tdir
 
 
@@ -341,7 +343,9 @@ def test_sc_pairs_dataset_matches_jax(pair_sets, subsample):
 
 def test_prep_batch_puts_pair_i_on_rows_2i_and_2i_plus_1(pair_sets):
     _, tdir = pair_sets
-    rows = np.load(os.path.join(tdir, "images.npy"))
+    files = sorted(f for f in os.listdir(tdir) if f.endswith(".png"))
+    assert [f[:8] for f in files[8:10]] == ["000004_0", "000004_1"]
+    rows = np.stack([read_png(os.path.join(tdir, f)) for f in files])
     tset = ScPairsDataset(tdir)
     _, poses, images = ScPairsDataset.prep_batch(tset.gather([4, 1]))
     np.testing.assert_array_equal(images, rows[[8, 9, 2, 3]])
