@@ -4,8 +4,9 @@ datasets, the disk cache, the threaded loader), its experiment CLI
 (sphere-cube renders, the toy experiment, the Gaussian baseline), a
 Gaussian-latent session, the vMF latents, the HTTP server, the serving
 CLI's export, the graphed ahead-of-time session, the paper's regularised
-training on sc-pairs and the latent-space analysis and checkpoint
-evaluation on one NVIDIA GPU and check them.
+training on sc-pairs, the latent-space analysis and checkpoint
+evaluation, the toy drivers, and training and serving over meshes on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -186,6 +187,46 @@ Phases, each timed:
    ``--density_k 10 30``, ``--ll_n 500``, a few items (K1 in the decode,
    K3 at k = 10 and at k = 30): both IW-LLs finite, each item's no lower
    than the mean of its own log-weights; the difference printed.
+
+26. the toy drivers: ``cli.run_degree_sweep --degrees 3 10 16`` for 3
+   epochs at the script's widths (n = 1024, 4 copies; 'fused': K1
+   generates each toy set, K2 trains, up to its degree-16 instantiation),
+   its table merged into chiprun_out/; at each swept degree the toy set
+   by K1 and K1/K2 on its first 64 poses against the plain chain and its
+   autograd; device us of K1, K2 forward and backward, K5 and K6 at B =
+   64, C = 4 for L = 10 and 16 beside their bounds; ``cli.analyze_toy
+   --configs all`` for one epoch ('fused': K1, K2, K3, K4) and its six
+   defaults with ``--kernel_impl pallas`` (K5, K6, K3, K4), every result
+   finite, K5/K6 at the toy shape against the plain version;
+27. training over process meshes: the flagship from the converged weights
+   at a global batch of 64 renders, each rank a child process of
+   ``python -m torch.distributed.run`` running ``parallel.run_steps``
+   (which trains through ``UnsupervisedExperiment.train``) under a time
+   limit (a rank that fails or runs out of time fails the script): 2 ranks
+   x 32 on the one card over gloo (the mesh 2 x 1, 5 steps, 'fused' and
+   'pallas') and the mesh 1 x 2 (the big layers split, 3 steps) in one
+   launch of 2 ranks, and one rank over NCCL (3 steps); after every step
+   each rank's loss, parameters and BatchNorm statistics held against the
+   single-process card step on the same rows and noise, each tolerance
+   plus twice the CPU's own float32 error against the exact float64 step
+   there (C3); the backend, host ms a step per rank and each rank's
+   launches of K2-K6 printed. Then the entry point a user runs, ``python
+   -m torch.distributed.run --nproc_per_node 4 -m lie_vae_tpu_torch.cli.main
+   --mesh_data 2 --mesh_model 2`` (gloo, the one card) on 320 of the
+   renders from the converged weights, one epoch of 3 steps, ``test()``,
+   the IW-LL and the checkpoint rank 0 writes: the checkpoint and the
+   IW-LL held against the single-process CLI's (the card, and the CPU in
+   float32 and float64), each rank's launches counted. Every launch is
+   started right after the builds, each rank importing torch and the port
+   and making its CUDA context while the first phases run, and waits for
+   its inputs;
+28. serving over a data mesh: ``InferenceSession(mesh=make_mesh(2,
+   devices=['cuda:0', 'cuda:0']))`` and the graphed session of an
+   ``export_aot`` over 2 data devices (one graph per surface and replica)
+   answer encode, decode and reconstruct at 64 as the single-device
+   session does, within POSE_TOL and IMAGE_TOL; K1 once per replica per
+   decode, graph replays counted; each session's three requests timed once
+   more warm, the single-device session's beside them.
 
 The last lines are a JSON record of the kernels, the card line, and
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -1381,6 +1422,660 @@ def precision_subprocess(proc, batch, cpu_session, exact_loss):
     return res
 
 
+# the toy drivers: degrees swept, epochs, outputs
+SWEEP_DEGREES = (3, 10, 16)
+SWEEP_EPOCHS = 3
+SWEEP_DIR = os.path.join(ROOT, "chiprun_out", "smoke_sweep")
+TOY_ANALYSIS_DIR = os.path.join(ROOT, "chiprun_out", "smoke_toy_analysis")
+# data-parallel training: steps of the 2 x 1 mesh, of the 1 x 2 mesh and
+# of the one NCCL rank; the children's time limit once their inputs are
+# there, and the longest a rank started early waits for them; their inputs
+DP_STEPS = 5
+DP_SHORT_STEPS = 3
+DP_TIMEOUT_S = 240
+DP_WAIT_S = 900
+DP_DIR = os.path.join(ROOT, "build", "smoke_dp")
+# the CLI over the mesh 2 x 2: 320 of the renders (192 to train on, one
+# epoch of 3 steps at 64), the IW-LL of 2 items at n = 4
+DP_CLI_DIR = os.path.join(ROOT, "chiprun_out", "smoke_dp_cli")
+DP_CLI_ARGV = ["--dataset", "spherecube", "--data_dir", DATA_DIR,
+               "--subsample", "0.3125", "--epochs", "1", "--sigma_clamp",
+               "auto", "--torch_checkpoint", CHECKPOINT, "--ll_samples",
+               "4", "--ll_max_items", "2"]
+DP_CLI_STEPS = 3
+
+
+def reset(counters):
+    for obj, attr in counters:
+        setattr(obj, attr, 0)
+
+
+def chain_check(L, angles, spectrum, dout):
+    """K1, and K2 forward with residuals and backward, through the chain's
+    autograd Function on ``angles`` (B, 3) and a shared ``spectrum``,
+    against the plain chain and its autograd: (|K1 - plain| of max(1,
+    max|x|), the worst gradient error of max(1, max|ref|))."""
+    from lie_vae_tpu_torch.ops.kernels import wigner_fused
+    from lie_vae_tpu_torch.ops.wigner import block_wigner_apply_zjz
+    with torch.no_grad():
+        k1 = wigner_fused.block_wigner_matrix_multiply_fused(angles, spectrum,
+                                                             L)
+    res = []
+    for fn in (wigner_fused.block_wigner_matrix_multiply_fused,
+               block_wigner_apply_zjz):
+        a = angles.clone().requires_grad_()
+        xx = spectrum.clone().requires_grad_()
+        out = fn(a, xx, L)
+        res.append((out.detach(),) + torch.autograd.grad(out, (a, xx), dout))
+    (o1, da1, dx1), (o2, da2, dx2) = res
+    scale = max(1.0, spectrum.abs().max().item())
+    torch.cuda.synchronize()
+    return (max((k1 - o2).abs().max().item(), (o1 - o2).abs().max().item())
+            / scale, max(max_rel(da1, da2)[1], max_rel(dx1, dx2)[1]))
+
+
+def toy_sweep_phase(counters, counts):
+    """run_degree_sweep at SWEEP_DEGREES, analyze_toy --configs all
+    ('fused') and its six defaults with 'pallas'; the kernels at the swept
+    degrees and the toy shape held against their plain versions; device us
+    of K1, K2, K5, K6 at B = 64, C = 4 for L = 10 and 16."""
+    from lie_vae_tpu_torch.cli import analyze_toy, run_degree_sweep
+    from lie_vae_tpu_torch.data import ToyDataset
+    from lie_vae_tpu_torch.ops import quaternions_to_eazyz
+    from lie_vae_tpu_torch.ops.kernels import wigner_block, wigner_fused
+    from lie_vae_tpu_torch.profile_serve import device_us
+    out = {}
+    t0 = phase(f"the degree sweep: python -m lie_vae_tpu_torch.cli."
+               f"run_degree_sweep --degrees "
+               f"{' '.join(map(str, SWEEP_DEGREES))} --epochs {SWEEP_EPOCHS} "
+               "(n = 1024, 4 copies, 'fused')")
+    shutil.rmtree(SWEEP_DIR, ignore_errors=True)
+    reset(counters)
+    ts = time.perf_counter()
+    res = run_degree_sweep.main(
+        ["--degrees", *map(str, SWEEP_DEGREES), "--epochs", str(SWEEP_EPOCHS),
+         "--out_dir", SWEEP_DIR])
+    out["sweep_s"] = time.perf_counter() - ts
+    out["sweep_launches"] = counts()
+    table = open(os.path.join(SWEEP_DIR, "TOY_RESULTS.md")).read()
+    for L in SWEEP_DEGREES:
+        r = res[("ae-action-s2s2", L)]
+        vals = [r["test_recon"]] + [r[f"discontinuity_{t}"][k]
+                                    for t in ("circle", "random_walk")
+                                    for k in ("mean", "max")]
+        if not (np.isfinite(vals).all() and f"| L={L} (" in table):
+            raise AssertionError(f"the sweep at L = {L}: {r}")
+        print(f"   L={L:2d}: test recon {r['test_recon']:.3f}, pose "
+              f"coverage {r['pose_err_deg']['frac_within_10deg']:.3f} "
+              f"within 10 deg, {r['pose_err_deg']['frac_near_flip']:.3f} "
+              f"at a flip, {r['train_s']} s")
+    got = out["sweep_launches"]
+    if not all(got[k] for k in ("launches", "launches_residuals",
+                                "launches_backward")) \
+            or got["block_launches"]:
+        raise AssertionError(f"the sweep's launches: {got}")
+    print(f"   launches in the path: {got}; {out['sweep_s']:.2f} s; the "
+          "table merged into chiprun_out/smoke_sweep/TOY_RESULTS.md")
+    gen = torch.Generator().manual_seed(11)
+    worst = [0.0, 0.0]
+    for L in SWEEP_DEGREES:
+        # the phase's inputs: its toy set (K1 on the card, the plain chain
+        # on the CPU) and K2 on its first 64 poses and spectrum
+        card = ToyDataset.generate(n=1024, degrees=L, rep_copies=4)
+        plain = ToyDataset.generate(n=1024, degrees=L, rep_copies=4,
+                                    device="cpu")
+        err_x = float(np.abs(card.x - plain.x).max()) / max(
+            1.0, float(np.abs(plain.x).max()))
+        angles = quaternions_to_eazyz(torch.as_tensor(
+            card.quaternions[:64], device="cuda")).contiguous()
+        spectrum = torch.as_tensor(card.harmonics, device="cuda")
+        dout = torch.randn(((64,) + tuple(card.x.shape[1:])),
+                           generator=gen).cuda()
+        e_out, e_grad = chain_check(L, angles, spectrum, dout)
+        if not (err_x <= KERNEL_TOL and e_out <= KERNEL_TOL
+                and e_grad <= GRAD_TOL):
+            raise AssertionError(f"the chain kernels at L = {L}: toy set "
+                                 f"{err_x:.3e}, K1/K2 {e_out:.3e}, "
+                                 f"gradients {e_grad:.3e}")
+        worst = [max(worst[0], err_x, e_out), max(worst[1], e_grad)]
+        print(f"   L={L:2d}: the toy set by K1 vs the plain chain "
+              f"{err_x:.3e}, K1/K2 on its first 64 poses {e_out:.3e} of "
+              f"max(1, max|x|), gradients {e_grad:.3e} (tol {KERNEL_TOL}, "
+              f"{GRAD_TOL})")
+    out["sweep_kernel_err"] = worst
+    tim = {}
+    for L in (10, 16):
+        S = (L + 1) ** 2
+        angles = group_matrix_to_eazyz_cuda(64, gen)
+        spectrum = torch.randn((S, 4), generator=gen).cuda()
+        dout = torch.randn((64, S, 4), generator=gen).cuda()
+        _, y, z = wigner_fused._launch_residuals(angles, spectrum, L)
+        tim[L] = {
+            "wigner_chain_fwd": (device_us(lambda: wigner_fused._launch(
+                angles, spectrum, L)), chain_bound(64, L, 4, True)),
+            "wigner_chain_fwd_res": (device_us(
+                lambda: wigner_fused._launch_residuals(angles, spectrum, L)),
+                chain_res_bound(64, L, 4, True)),
+            "wigner_chain_bwd": (device_us(
+                lambda: wigner_fused._launch_backward(
+                    angles, spectrum, y, z, dout, L, True)),
+                chain_bwd_bound(64, L, 4, True)),
+            "wigner_block_fwd": (device_us(lambda: wigner_block._launch(
+                angles, spectrum, L, False)),
+                block_bound(64, L, 4, True, False)),
+            "wigner_block_bwd": (device_us(
+                lambda: wigner_block._launch_backward(
+                    angles, spectrum, dout, L, False, True)),
+                block_bound(64, L, 4, True, True))}
+        print(f"   L={L}, B=64, C=4, shared: device us (bound us): "
+              + "; ".join(f"{k} {v[0]:.2f} ({1e3 * v[1][0]:.3f} {v[1][1]})"
+                          for k, v in tim[L].items()))
+    out["toy_shape_device_us"] = {
+        L: {k: {"device_us": v[0], "bound_us": 1e3 * v[1][0],
+                "bound_by": v[1][1]} for k, v in t.items()}
+        for L, t in tim.items()}
+    done(t0)
+
+    for impl, configs in (("fused", ["all"]),
+                          ("pallas", analyze_toy.DEFAULT_CONFIGS)):
+        t0 = phase(f"the toy matrix: python -m lie_vae_tpu_torch.cli."
+                   f"analyze_toy --configs {' '.join(configs)} --epochs 1 "
+                   f"--kernel_impl {impl}")
+        out_dir = os.path.join(TOY_ANALYSIS_DIR, impl)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        reset(counters)
+        ts = time.perf_counter()
+        res = analyze_toy.main(["--configs", *configs, "--epochs", "1",
+                                "--kernel_impl", impl, "--out_dir", out_dir])
+        secs = time.perf_counter() - ts
+        got = counts()
+        want = (("launches", "launches_residuals", "launches_backward",
+                 "density_launches", "density_launches_backward")
+                if impl == "fused" else
+                ("block_launches", "block_launches_backward",
+                 "density_launches", "density_launches_backward"))
+        zero = (("block_launches",) if impl == "fused"
+                else ("launches_residuals", "launches_backward"))
+        if not all(got[k] for k in want) or any(got[k] for k in zero):
+            raise AssertionError(f"analyze_toy ({impl}): launches {got}")
+        for name, r in res.items():
+            vals = [r["test_recon"]] + [r[f"discontinuity_{t}"][k]
+                                        for t in ("circle", "random_walk")
+                                        for k in ("mean", "max")]
+            if not np.isfinite(vals).all():
+                raise AssertionError(f"analyze_toy {name}: {r}")
+        with np.load(os.path.join(out_dir, "arrays.npz")) as z:
+            if not all(np.isfinite(z[k]).all() for k in z.files):
+                raise AssertionError(f"analyze_toy ({impl}): arrays")
+        print(f"   {len(res)} configs, every result finite; launches in the "
+              f"path: {got}; {secs:.2f} s")
+        out[f"toy_matrix_{impl}"] = {"configs": len(res), "s": secs,
+                                     "launches": got}
+        if impl == "pallas":
+            gen5 = torch.Generator().manual_seed(12)
+            angles = group_matrix_to_eazyz_cuda(64, gen5)
+            x = torch.randn((16, 4), generator=gen5).cuda()
+            dout = torch.randn((64, 16, 4), generator=gen5).cuda()
+            e5, tol5, _, r6 = check_block(3, angles, x, dout, False)
+            if not (e5 <= tol5 and r6 <= GRAD_TOL):
+                raise AssertionError(f"K5/K6 at the toy shape: {e5:.3e}, "
+                                     f"{r6:.3e}")
+            print(f"   K5/K6 at the toy shape (L = 3, C = 4, B = 64) vs the "
+                  f"plain version: {e5:.3e} (tol {tol5:.1e}), gradients "
+                  f"{r6:.3e}")
+        done(t0)
+    return out
+
+
+def group_matrix_to_eazyz_cuda(b, gen):
+    from lie_vae_tpu_torch.ops import (group_matrix_to_eazyz,
+                                       random_group_matrices)
+    return group_matrix_to_eazyz(random_group_matrices(
+        b, gen, device="cpu").cuda()).contiguous()
+
+
+def rank_after(argv):
+    """``chip_smoke.py --rank-after GO OUT -m MODULE ARGS...``: one rank of
+    a launch that the script starts before its inputs exist. It imports
+    torch and the port's training modules and makes its CUDA context while
+    the script's first phases run, waits for the file GO (and ends if the script that
+    started it has ended, or after DP_WAIT_S), runs MODULE as ``python -m
+    MODULE ARGS`` does, and writes the kernels' launches in that run to
+    ``OUT/launches_rank<RANK>.json``."""
+    import runpy
+    import lie_vae_tpu_torch.cli  # noqa: F401
+    import lie_vae_tpu_torch.parallel  # noqa: F401
+    import lie_vae_tpu_torch.train  # noqa: F401
+    from lie_vae_tpu_torch.ops.kernels import kernel_counts
+    go, out, flag, module, args = argv[0], argv[1], argv[2], argv[3], argv[4:]
+    assert flag == "-m", argv
+    if torch.cuda.is_available():
+        torch.zeros(1, device="cuda")
+    parent = int(os.environ["SMOKE_PID"])
+    deadline = time.monotonic() + DP_WAIT_S
+    while not os.path.exists(go):
+        try:
+            os.kill(parent, 0)
+        except ProcessLookupError:
+            sys.exit("the script that started this rank has ended")
+        if time.monotonic() > deadline:
+            sys.exit(f"no {go} after {DP_WAIT_S} s")
+        time.sleep(0.05)
+    before = kernel_counts()
+    sys.argv = [module] + args
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+    after = kernel_counts()
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, f"launches_rank{os.environ['RANK']}.json"),
+              "w") as f:
+        json.dump({k: after[k] - before[k] for k in after}, f)
+
+
+class Launch:
+    """``n`` ranks of ``python -m MODULE ARGS`` under torch.distributed.run,
+    started early (:func:`rank_after`) in a child process group of their
+    own, which is killed at exit if it is still there. :meth:`finish`
+    hands them their inputs and waits DP_TIMEOUT_S at most: a rank that
+    fails or runs out of time fails the phase."""
+
+    def __init__(self, name, n, module, args, cwd=ROOT):
+        self.name, self.n = name, n
+        self.go = os.path.join(DP_DIR, f"{name}.go")
+        self.out = os.path.join(DP_DIR, name)
+        self.log_path = os.path.join(DP_DIR, f"{name}.log")
+        os.makedirs(cwd, exist_ok=True)
+        env = dict(os.environ, OMP_NUM_THREADS="2", SMOKE_PID=str(os.getpid()),
+                   PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH",
+                                                                  ""))
+        with open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc_per_node", str(n),
+                 os.path.abspath(__file__), "--rank-after", self.go,
+                 self.out, "-m", module, *args],
+                cwd=cwd, env=env, stdout=log, stderr=subprocess.STDOUT,
+                start_new_session=True)
+        atexit.register(self.stop)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, 9)
+            self.proc.wait()
+
+    def finish(self):
+        """Go, and wait: returns the log and each rank's launches."""
+        tl = time.perf_counter()
+        open(self.go, "w").close()
+        try:
+            rc = self.proc.wait(timeout=DP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            rc = "a timeout"
+        self.seconds = time.perf_counter() - tl
+        with open(self.log_path) as f:
+            text = f.read()
+        if rc != 0:
+            raise AssertionError(f"the {self.n}-rank launch {self.name} "
+                                 f"ended with {rc}:\n{text[-6000:]}")
+        launches = []
+        for r in range(self.n):
+            with open(os.path.join(self.out, f"launches_rank{r}.json")) as f:
+                launches.append(json.load(f))
+        return text, launches
+
+    def ranks(self, spec):
+        """Each rank's results of ``parallel.run_steps``'s spec-th spec."""
+        return [dict(np.load(os.path.join(self.out, f"rank{r}_{spec}.npz")))
+                for r in range(self.n)]
+
+
+def start_dp_launches():
+    """The launches of the data-parallel phase, started after the builds:
+    2 ranks over gloo (``run_steps`` of the meshes 2 x 1 and 1 x 2), one
+    rank over NCCL, and the CLI over the mesh 2 x 2 (4 ranks, gloo)."""
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    shutil.rmtree(DP_CLI_DIR, ignore_errors=True)
+    os.makedirs(DP_DIR)
+    steps = "lie_vae_tpu_torch.parallel.run_steps"
+    spec = lambda name: os.path.join(DP_DIR, f"{name}.npz")  # noqa: E731
+    return {
+        "gloo2": Launch("gloo2", 2, steps, [spec("2x1_gloo"),
+                                            spec("1x2_gloo"),
+                                            os.path.join(DP_DIR, "gloo2")]),
+        "nccl1": Launch("nccl1", 1, steps, [spec("1_nccl"),
+                                            os.path.join(DP_DIR, "nccl1")]),
+        "cli4": Launch("cli4", 4, "lie_vae_tpu_torch.cli.main",
+                       DP_CLI_ARGV + [
+                           "--mesh_data", "2", "--mesh_model", "2",
+                           "--save_dir", os.path.join(DP_CLI_DIR, "mesh")],
+                       cwd=os.path.join(DP_CLI_DIR, "mesh"))}
+
+
+def _median_ms(ms):
+    """The median host ms of the steps after the first."""
+    return float(np.median(ms[1:] if len(ms) > 1 else ms))
+
+
+def _state_of(out, impl, step):
+    head = f"{impl}/state{step}/"
+    return {k[len(head):]: v for k, v in out.items() if k.startswith(head)}
+
+
+def hold_dp(got, card, cpu, exact, impl, steps, what):
+    """Each step of a rank (``got``) against the single-process card step
+    (``card``): the loss within LOSS_TOL of the exact one's, each parameter
+    within PARAM_TOL and each BatchNorm statistic within STATS_TOL of its
+    largest value, each plus ARBITER times the CPU's own float32 error
+    against the exact float64 step at that step (C3). Returns the worst
+    share of the allowance."""
+    worst = 0.0
+    for i in range(steps):
+        l_g, l_c = (float(r[f"{impl}/loss"][i]) for r in (got, card))
+        l_32, l_64 = (float(r["fused/loss"][i]) for r in (cpu, exact))
+        allow = LOSS_TOL * abs(l_64) + ARBITER * abs(l_32 - l_64)
+        worst = max(worst, abs(l_g - l_c) / allow)
+        s_g, s_c = _state_of(got, impl, i), _state_of(card, impl, i)
+        s_32, s_64 = _state_of(cpu, "fused", i), _state_of(exact, "fused", i)
+        for k, ref in s_c.items():
+            if k.endswith("num_batches_tracked"):
+                if int(s_g[k]) != int(ref):
+                    raise AssertionError(f"{what}, step {i}: {k}")
+                continue
+            own = float(np.abs(s_32[k].astype(np.float64) - s_64[k]).max())
+            tol = (STATS_TOL * float(np.abs(s_64[k]).max())
+                   if "running_" in k else PARAM_TOL)
+            share = float(np.abs(s_g[k] - ref).max()) / (tol + ARBITER * own)
+            if not share <= 1.0:
+                raise AssertionError(
+                    f"{what}, step {i}: {k} {np.abs(s_g[k] - ref).max():.3e} "
+                    f"from the single-process card step, beyond "
+                    f"{tol:.3e} + {ARBITER} x the CPU's float32 error "
+                    f"{own:.3e}")
+            worst = max(worst, share)
+        if not abs(l_g - l_c) <= allow:
+            raise AssertionError(f"{what}, step {i}: loss {l_g} vs {l_c}")
+    return worst
+
+
+def _cli_tensors(path):
+    """A CLI checkpoint's tensors by kind (``model``, ``mu``, ``nu``), and
+    the whole of it."""
+    from lie_vae_tpu_torch.train.checkpoint import load_checkpoint
+    ckpt = load_checkpoint(path)
+    opt = ckpt["optimizer"]
+    return {"model": {k: v.double() for k, v in ckpt["model"].items()
+                      if not k.endswith("num_batches_tracked")},
+            "mu": dict(enumerate(t.double() for t in opt["mu"])),
+            "nu": dict(enumerate(t.double() for t in opt["nu"]))}, ckpt
+
+
+def hold_cli(dirs):
+    """The CLI's checkpoint and IW-LL over the mesh (``dirs["mesh"]``)
+    against the exact single-process CLI (the CPU in float64): each tensor
+    of the model and of Adam's mu and nu within PARAM_TOL of its scale,
+    plus ARBITER times the farther of the two single-process float32 runs
+    (the card's, the CPU's) from the exact one (C3); a parameter's or
+    statistic's scale is its exact tensor's largest magnitude, a moment's
+    the largest magnitude of that moment over all parameters. The IW-LL in
+    ``ll.txt`` within LOSS_TOL of the exact one's plus the same ARBITER
+    term, the step, Adam's count and BatchNorm's counts the same. Returns
+    the worst share of the allowance."""
+    from lie_vae_tpu_torch.cli import main as cli_main
+    runs = {k: _cli_tensors(os.path.join(d, cli_main.CHECKPOINT))
+            for k, d in dirs.items()}
+    worst = 0.0
+    for kind in ("model", "mu", "nu"):
+        got, exact = runs["mesh"][0][kind], runs["cpu64"][0][kind]
+        if got.keys() != exact.keys():
+            raise AssertionError(f"the mesh CLI's checkpoint: {kind} keys")
+        top = max(t.abs().max().item() for t in exact.values())
+        for k, want in exact.items():
+            scale = want.abs().max().item() if kind == "model" else top
+            own = max((runs[t][0][kind][k] - want).abs().max().item()
+                      for t in ("card", "cpu32"))
+            err = (got[k] - want).abs().max().item()
+            share = err / (PARAM_TOL * scale + ARBITER * own)
+            if not share <= 1.0:
+                raise AssertionError(
+                    f"the mesh CLI's {kind} {k}: {err:.3e} from the exact "
+                    f"run, beyond {PARAM_TOL} x {scale:.3e} + {ARBITER} x "
+                    f"{own:.3e}")
+            worst = max(worst, share)
+    ckpt, single = runs["mesh"][1], runs["card"][1]
+    counts = [(c["step"], c["optimizer"]["count"], {
+        k: int(v) for k, v in c["model"].items()
+        if k.endswith("num_batches_tracked")}) for c in (ckpt, single)]
+    if counts[0] != counts[1] or ckpt["step"] != DP_CLI_STEPS:
+        raise AssertionError(f"the mesh CLI's counts {counts}")
+    ll = {}
+    for k, d in dirs.items():
+        with open(os.path.join(d, "ll.txt")) as f:
+            lines = f.read().splitlines()
+        if len(lines) != 1:
+            raise AssertionError(f"{k}: ll.txt {lines}")
+        ll[k] = float(lines[0].split(":")[1])
+    own = max(abs(ll[t] - ll["cpu64"]) for t in ("card", "cpu32"))
+    allow = LOSS_TOL * abs(ll["cpu64"]) + ARBITER * own
+    if not abs(ll["mesh"] - ll["cpu64"]) <= allow:
+        raise AssertionError(f"the mesh CLI's IW-LL {ll}")
+    return max(worst, abs(ll["mesh"] - ll["cpu64"]) / allow), ll
+
+
+def dp_train_phase(weights, batch, counters, launches):
+    """The flagship from the converged weights over process meshes on the
+    one card, each rank a child process started after the builds: 2 x 1
+    over gloo ('fused' and 'pallas') and 1 x 2 in one launch of 2 ranks, 1
+    rank over NCCL; every rank's loss, parameters and statistics after
+    every step held against the single-process card step on the same 64
+    rows and noise. Then the CLI over the mesh 2 x 2 (4 ranks), its
+    checkpoint and IW-LL against the single-process CLI's."""
+    from lie_vae_tpu_torch.cli import main as cli_main
+    from lie_vae_tpu_torch.models import flagship_model
+    from lie_vae_tpu_torch.parallel import run_steps
+    from lie_vae_tpu_torch.ops.kernels import KERNEL_COUNTERS
+    t0 = phase(f"data-parallel training: the flagship from the converged "
+               f"weights, a global batch of 64 renders; 2 ranks x 32 on the "
+               f"card over gloo ({DP_STEPS} steps, 'fused' and 'pallas'), "
+               f"the mesh 1 x 2 ({DP_SHORT_STEPS} steps) and one rank over "
+               "NCCL, each against the single-process card step; then "
+               "python -m lie_vae_tpu_torch.cli.main --mesh_data 2 "
+               "--mesh_model 2 against the single-process CLI")
+    cfg = {k: v for k, v in flagship_model(
+        "cpu", sigma_clamp=SIGMA_CLAMP).config.items()
+        if k not in ("kernel_impl", "fixed_item_rep")}
+    spec = dict(model=cfg, dtype="float32", device="cuda", batch_size=64,
+                seed=0, lr=1e-3, clip_grads=1e-5, beta=1.0, steps=DP_STEPS,
+                timeout_s=120, kernel_impls=["fused", "pallas"])
+    arrays = {f"w/{k}": v.numpy() for k, v in weights.items()}
+    arrays.update(train_x=np.asarray(batch), test_x=np.asarray(batch[:2]))
+    runs = (("2x1_gloo", "gloo2", 0, [2, 1], DP_STEPS, ["fused", "pallas"]),
+            ("1x2_gloo", "gloo2", 1, [1, 2], DP_SHORT_STEPS, ["fused"]),
+            ("1_nccl", "nccl1", 0, [1, 1], DP_SHORT_STEPS, ["fused"]))
+    for name, _, _, mesh, steps, impls in runs:
+        run_steps.write_spec(os.path.join(DP_DIR, f"{name}.npz"),
+                             dict(spec, mesh=mesh, steps=steps,
+                                  kernel_impls=impls), arrays)
+    tr = time.perf_counter()
+    card = run_steps.run(spec, arrays, device="cuda")
+    cpu = run_steps.run(dict(spec, kernel_impls=["fused"]), arrays,
+                        device="cpu")
+    exact = run_steps.run(dict(spec, dtype="float64",
+                               kernel_impls=["fused"]), arrays, device="cpu")
+    print(f"   the single-process twins: card ('fused' "
+          f"{_median_ms(card['fused/step_ms']):.2f}, 'pallas' "
+          f"{_median_ms(card['pallas/step_ms']):.2f} host ms a step), CPU "
+          f"float32 and float64; {time.perf_counter() - tr:.2f} s")
+    out, logs = {}, {}
+    for launch in ("gloo2", "nccl1"):
+        reset(counters)
+        logs[launch] = launches[launch].finish()[0]
+    for name, launch, index, mesh, steps, impls in runs:
+        ranks, log, n = (launches[launch].ranks(index), logs[launch],
+                         launches[launch].n)
+        backends = sorted(set(re.findall(r"backend (\w+) on (cuda:\d)",
+                                         log)))
+        want = {"gloo" if "gloo" in name else "nccl"}
+        if {b for b, _ in backends} != want:
+            raise AssertionError(f"{name}: backends {backends}")
+        for impl in impls:
+            worst = max(hold_dp(r, card, cpu, exact, impl, steps,
+                                f"{name} rank {i} {impl}")
+                        for i, r in enumerate(ranks))
+            ms = [_median_ms(r[f"{impl}/step_ms"]) for r in ranks]
+            counted = [dict(zip(KERNEL_COUNTERS,
+                                r[f"{impl}/launches"].tolist()))
+                       for r in ranks]
+            want_k = (("launches_residuals", "launches_backward",
+                       "density_launches", "density_launches_backward")
+                      if impl == "fused" else
+                      ("block_launches", "block_launches_backward",
+                       "density_launches", "density_launches_backward"))
+            for lr in counted:
+                if any(lr[k] != steps for k in want_k):
+                    raise AssertionError(f"{name} {impl}: launches {lr}")
+            out[f"{name}_{impl}"] = {
+                "backend": backends[0][0], "ranks": n, "mesh": mesh,
+                "steps": steps, "host_ms_per_step": ms,
+                "card_host_ms_per_step": _median_ms(card[f"{impl}/step_ms"]),
+                "worst_share": worst, "launches_per_rank": counted,
+                "launch_s": launches[launch].seconds}
+            print(f"   {name} ({backends[0][0]}, {n} rank(s), mesh "
+                  f"{mesh[0]}x{mesh[1]}) {impl}: {steps} steps, every rank "
+                  f"within {worst:.3f} of the allowance; host ms a step per "
+                  f"rank {', '.join(f'{m:.2f}' for m in ms)} (one process "
+                  f"{out[f'{name}_{impl}']['card_host_ms_per_step']:.2f}); "
+                  f"launches per rank {counted[0]}; the launch from its "
+                  f"inputs to its end {launches[launch].seconds:.1f} s")
+
+    # the CLI: one process on the card, and on the CPU in float32 and in
+    # float64 (the exact run: torch's default dtype float64, the weights
+    # from the same file, the noise drawn in float32 as ever)
+    tc = time.perf_counter()
+    dirs = {k: os.path.join(DP_CLI_DIR, k)
+            for k in ("mesh", "card", "cpu32", "cpu64")}
+    for name, device, dtype in (("card", "cuda", torch.float32),
+                                ("cpu32", "cpu", torch.float32),
+                                ("cpu64", "cpu", torch.float64)):
+        os.makedirs(dirs[name])
+        os.chdir(dirs[name])
+        torch.set_default_dtype(dtype)
+        try:
+            cli_main.main(DP_CLI_ARGV + ["--device", device,
+                                         "--save_dir", dirs[name]])
+        finally:
+            torch.set_default_dtype(torch.float32)
+            os.chdir(ROOT)
+    single_s = time.perf_counter() - tc
+    log, cli_launches = launches["cli4"].finish()
+    backends = sorted(set(re.findall(r"backend (\w+) on (cuda:\d)", log)))
+    if backends != [("gloo", "cuda:0")] or log.count(
+            f"Epoch 0 it {DP_CLI_STEPS} train recon") != 1:
+        raise AssertionError(f"the mesh CLI: backends {backends}, or not "
+                             f"one epoch line from rank 0:\n{log[-3000:]}")
+    for lr in cli_launches:
+        if any(lr[k] != DP_CLI_STEPS for k in (
+                "launches_residuals", "launches_backward",
+                "density_launches_backward")) or not (
+                lr["launches"] and lr["density_launches"]) or any(
+                lr[k] for k in ("block_launches", "block_launches_backward")):
+            raise AssertionError(f"the mesh CLI's launches {cli_launches}")
+    worst, ll = hold_cli(dirs)
+    out["cli_2x2_gloo"] = {
+        "backend": "gloo", "ranks": 4, "mesh": [2, 2], "steps": DP_CLI_STEPS,
+        "worst_share": worst, "ll": ll, "launches_per_rank": cli_launches,
+        "launch_s": launches["cli4"].seconds, "single_process_s": single_s}
+    print(f"   the CLI over the mesh 2 x 2 (gloo, 4 ranks, {DP_CLI_STEPS} "
+          f"steps, test() and the IW-LL): its checkpoint and IW-LL within "
+          f"{worst:.3f} of the allowance against the exact single-process "
+          f"CLI (IW-LL {ll}); launches per rank {cli_launches[0]}; the "
+          f"launch from its inputs to its end "
+          f"{launches['cli4'].seconds:.1f} s; the three single-process CLI "
+          f"runs {single_s:.1f} s")
+    done(t0)
+    return out
+
+
+def dp_serve_phase(weights, images, counters, counts):
+    """The flagship served over a 2-device mesh on the one card (two
+    replicas), eager and graphed (an export_aot over 2 data devices),
+    against the single-device session."""
+    from lie_vae_tpu_torch.models import flagship_model
+    from lie_vae_tpu_torch.parallel import make_mesh
+    from lie_vae_tpu_torch.serve import (AotSession, InferenceSession,
+                                         export_aot_from_torch)
+    t0 = phase("serving over a data mesh: InferenceSession(mesh=make_mesh(2, "
+               "devices=['cuda:0', 'cuda:0'])) and the graphed session of an "
+               "export_aot over 2 data devices, encode/decode/reconstruct at "
+               "64, against the single-device session")
+    devices = ["cuda:0", "cuda:0"]
+    mesh = make_mesh(2, devices=devices)
+
+    def answers(sess):
+        enc = sess.encode(images)
+        return enc, sess.decode(enc["pose"]), sess.reconstruct(images)
+
+    def timed(sess):
+        """Host ms of the three requests once more, the session warm."""
+        torch.cuda.synchronize()
+        tq = time.perf_counter()
+        answers(sess)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - tq)
+
+    single = InferenceSession(flagship_model("cuda"), weights,
+                              batch_size=64, seed=0)
+    want = answers(single)
+    single_ms = timed(single)
+    art = os.path.join(DP_DIR, "mesh_aot.npz")
+    os.makedirs(DP_DIR, exist_ok=True)
+    export_aot_from_torch(CHECKPOINT, flagship_model("cpu"), art,
+                          batch_size=64, mesh=mesh)
+    out = {}
+    for name, make in (
+            ("eager", lambda: InferenceSession(
+                flagship_model("cuda"), weights, batch_size=64, seed=0,
+                mesh=mesh)),
+            ("graphed", lambda: AotSession(art, seed=0, devices=devices))):
+        sess = make()
+        reset(counters)
+        tq = time.perf_counter()
+        got = answers(sess)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - tq
+        launches = counts()
+        d_pose = max(np.abs(got[0][k] - want[0][k]).max()
+                     for k in ("pose", "sigma", "sample"))
+        d_img = max(np.abs(got[1] - want[1]).max(),
+                    np.abs(got[2] - want[2]).max())
+        if not (d_pose <= POSE_TOL and d_img <= IMAGE_TOL):
+            raise AssertionError(f"the {name} mesh session: poses "
+                                 f"{d_pose:.3e}, images {d_img:.3e}")
+        if name == "eager" and launches["launches"] != 4:
+            raise AssertionError(f"the eager mesh session's launches "
+                                 f"{launches} (K1: one per replica per "
+                                 "decode)")
+        if name == "graphed" and (sess.replays["decode"] != 2
+                                  or launches["launches"] != 0):
+            raise AssertionError(f"the graphed mesh session: replays "
+                                 f"{sess.replays}, launches {launches}")
+        out[name] = {"max_diff_pose": float(d_pose),
+                     "max_diff_image": float(d_img), "s": secs,
+                     "launches": launches,
+                     "replays": dict(getattr(sess, "replays", {})),
+                     "warm_ms": timed(sess), "single_device_warm_ms":
+                     single_ms}
+        print(f"   {name}: poses within {d_pose:.3e}, images within "
+              f"{d_img:.3e} of the single-device session; launches "
+              f"{launches}; replays {out[name]['replays']}; "
+              f"{1e3 * secs:.1f} ms for the three requests, "
+              f"{out[name]['warm_ms']:.1f} ms once more (the single-device "
+              f"session {single_ms:.1f} ms)")
+        if name == "graphed":
+            sess.close()
+    done(t0)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() "
@@ -1466,6 +2161,9 @@ def main():
     print(f"   beside the builds: the profiler's first use "
           f"{profiler_warm_s:.2f} s; the fresh interpreter of the precision "
           "phase started")
+    # the ranks of the data-parallel phase start here, after the builds
+    # (beside them they slowed nvcc by a quarter), and wait for their inputs
+    dp_launches = start_dp_launches()
     done(t0)
 
     t0 = phase("K1: Wigner chain kernel vs plain chain on the card")
@@ -2822,6 +3520,9 @@ def main():
     iwll = {k: ev["ll"][k]["ll"] for k in EVAL_K}
     print(f"   IW-LL(k = 30) - IW-LL(k = 10): {iwll[30] - iwll[10]:.6f}")
     done(t0)
+    toy_sweep = toy_sweep_phase(counters, counts)
+    dp_train = dp_train_phase(weights, batch, counters, dp_launches)
+    dp_serve = dp_serve_phase(weights, batch, counters, counts)
     # the kernels each new path must launch, and no training kernel
     new_paths = {"analysis": (analysis_launches, ("launches",)),
                  "analysis_pallas": (analysis_pallas_launches,
@@ -2923,6 +3624,12 @@ def main():
     paths["reg_train"] = reg_launches
     paths["scpairs_cli"] = scp_launches
     paths.update({k: v[0] for k, v in new_paths.items()})
+    paths["degree_sweep"] = toy_sweep["sweep_launches"]
+    paths.update({f"toy_matrix_{k}": toy_sweep[f"toy_matrix_{k}"]["launches"]
+                  for k in ("fused", "pallas")})
+    paths.update({f"dp_{k}_rank0": v["launches_per_rank"][0]
+                  for k, v in dp_train.items()})
+    paths["dp_serve"] = dp_serve["eager"]["launches"]
     # graph replays run the kernels captured in them without their wrapper:
     # counted apart, per graph holding the kernel
     graph_replays = {
@@ -2984,6 +3691,8 @@ def main():
               "analysis_vs_cpu": analysis_vs_cpu,
               "toy_inputs_err": toy_err, "eval_s": eval_s, "iwll": iwll,
               "eval_sigma": ev["sigma"],
+              "toy_sweep": toy_sweep, "dp_train": dp_train,
+              "dp_serve": dp_serve,
               "total_s": time.perf_counter() - t_start}
     print(json.dumps(record))
     print(card)
@@ -2993,4 +3702,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank-after"]:
+        rank_after(sys.argv[2:])
+    else:
+        main()

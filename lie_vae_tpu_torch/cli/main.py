@@ -30,8 +30,14 @@ ops). ``--profile_dir`` writes a ``torch.profiler`` trace. The checkpoint is
 ``serve.InferenceSession.from_checkpoint`` serves. The run's device work
 is IEEE float32 (``precision.ieee_float32``: no TF32).
 
-The mesh flags are not ported: they raise ``NotImplementedError`` naming
-their ROADMAP.md item (Queue A, A9).
+``--mesh_data D --mesh_model M`` train data- and model-parallel over
+D x M processes (``parallel``): run under ``python -m
+torch.distributed.run --nproc_per_node D*M`` (or any launcher that sets
+``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``); with
+another world size the command raises and names the size it needs. The
+batch is the global one; each rank trains on its rows, on its own card
+over NCCL, on a shared card or the CPU (``--device cpu``) over gloo. Only
+rank 0 logs, prints the epoch lines, writes the checkpoint and ``ll.txt``.
 """
 import argparse
 import math
@@ -50,16 +56,23 @@ from lie_vae_tpu_torch.train.checkpoint import restore_state, save_state
 CHECKPOINT = "checkpoint.pt"
 
 
-def _not_ported(what, item):
-    raise NotImplementedError(f"{what}: not ported yet (ROADMAP.md, "
-                              f"Queue A, {item})")
-
-
-def check_ported(args):
-    """Raise ``NotImplementedError`` naming the ROADMAP.md item of the
-    first mode in ``args`` that the port does not run."""
-    if args.mesh_data > 1 or args.mesh_model > 1:
-        _not_ported("--mesh_data / --mesh_model", "A9")
+def make_run_mesh(args):
+    """The process mesh of ``--mesh_data``/``--mesh_model`` (None for
+    1 x 1): joins the launcher's process group, whose world size must be
+    their product, and points ``args.device`` at this rank's device."""
+    need = args.mesh_data * args.mesh_model
+    if need == 1:
+        return None
+    world = int(os.environ.get("WORLD_SIZE") or 1)
+    if world != need:
+        raise SystemExit(
+            f"--mesh_data {args.mesh_data} --mesh_model {args.mesh_model} "
+            f"needs a world size of {need} processes, this one has {world}: "
+            f"run it under python -m torch.distributed.run --standalone "
+            f"--nproc_per_node {need} -m lie_vae_tpu_torch.cli.main ...")
+    from lie_vae_tpu_torch.parallel import initialize_distributed, make_mesh
+    args.device = str(initialize_distributed(device=args.device))
+    return make_mesh(args.mesh_data, args.mesh_model)
 
 
 def build_dataset(args):
@@ -144,16 +157,23 @@ def build_model(args, dataset, item_rep):
 @ieee_float32()
 def main(argv=None):
     args = parse_args(argv)
-    print({k: v for k, v in sorted(vars(args).items())})
     if args.name is not None:
         args.log_dir = "runs/" + args.name
         args.save_dir = "outputs/" + args.name
-    check_ported(args)
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA card is available (pass "
                          "--device cpu to run on the CPU)")
+    mesh = make_run_mesh(args)
+    main_rank = mesh is None or mesh.is_main
+    say = print if main_rank else (lambda *a, **k: None)
+    say({k: v for k, v in sorted(vars(args).items())})
     torch.manual_seed(args.seed)
 
+    if mesh is not None and args.dataset == "toy":
+        # rank 0 generates a missing toy set; the others wait for it
+        if main_rank:
+            build_dataset(args)
+        mesh.barrier()
     dataset, batch_size, item_rep = build_dataset(args)
     model = build_model(args, dataset, item_rep)
 
@@ -161,7 +181,7 @@ def main(argv=None):
     num_test = min(25000, int(0.2 * len(dataset)))
     split = [num_valid, num_test, len(dataset) - num_valid - num_test]
     valid_dataset, test_dataset, train_dataset = random_split(dataset, split)
-    print("Dataset splits: train={}, valid={}, test={}".format(
+    say("Dataset splits: train={}, valid={}, test={}".format(
         len(train_dataset), len(valid_dataset), len(test_dataset)))
 
     equivariance = (LinearSchedule(0, args.equivariance, 1000,
@@ -186,12 +206,13 @@ def main(argv=None):
         encoder_continuity_lamb=encoder_continuity,
         control=args.control,
         control_p=args.control_p,
-        log=MetricWriter(args.log_dir),
+        log=MetricWriter(args.log_dir if main_rank else None),
         log_histograms=args.log_histograms,
         steps_per_call=args.steps_per_call,
         device_data=args.device_data,
         seed=args.seed,
         equivariance_rotate=args.equivariance_rotate,
+        mesh=mesh,
     )
 
     if args.torch_checkpoint:
@@ -203,13 +224,14 @@ def main(argv=None):
                              "it cannot be combined with --continue_epoch "
                              "(resume from the run's own checkpoint)")
         from lie_vae_tpu_torch.compat import load_torch
-        print(f"Importing torch checkpoint {args.torch_checkpoint} ..")
-        model.load_state_dict(load_torch(args.torch_checkpoint), strict=True)
+        from lie_vae_tpu_torch.train.checkpoint import load_model_state
+        say(f"Importing torch checkpoint {args.torch_checkpoint} ..")
+        load_model_state(model, load_torch(args.torch_checkpoint))
 
     checkpoint = (os.path.join(args.save_dir, CHECKPOINT)
                   if args.save_dir else None)
     if args.continue_epoch > 0 and checkpoint:
-        print("Loading..")
+        say("Loading..")
         restore_state(checkpoint, model, experiment.optimizer)
 
     if args.profile_dir:
@@ -228,19 +250,20 @@ def main(argv=None):
             elif early_stop_counter < args.max_early_stop:
                 early_stop_counter += 1
             else:
-                print(f"Early stop at epoch {epoch}")
+                say(f"Early stop at epoch {epoch}")
                 break
     experiment.log.close()
 
     if args.beta != 0:
-        print("Computing LL..")
+        say("Computing LL..")
         ll = experiment.log_likelihood(test_dataset, n=args.ll_samples,
                                        max_items=args.ll_max_items,
                                        batch_size=args.ll_batch,
                                        n_chunk=args.ll_chunk)
-        print("LL: {:.2f}".format(ll))
-        with open("ll.txt", "a") as f:
-            f.write("{} : {:4f}\n".format(args.name, ll))
+        say("LL: {:.2f}".format(ll))
+        if main_rank:
+            with open("ll.txt", "a") as f:
+                f.write("{} : {:4f}\n".format(args.name, ll))
     return experiment
 
 
@@ -303,8 +326,10 @@ def parse_args(argv=None):
     parser.add_argument("--weight_decay", type=float, default=0.0)
     parser.add_argument("--lr", type=float, default=1.0e-3)
     parser.add_argument("--config", nargs="*")
-    parser.add_argument("--mesh_data", type=int, default=1)
-    parser.add_argument("--mesh_model", type=int, default=1)
+    parser.add_argument("--mesh_data", type=int, default=1,
+                        help="data-parallel mesh axis size (processes)")
+    parser.add_argument("--mesh_model", type=int, default=1,
+                        help="model-parallel mesh axis size (processes)")
     parser.add_argument("--toy_path", default="data/toy.npz")
     parser.add_argument("--log_histograms", action="store_true")
     parser.add_argument("--seed", type=int, default=0,

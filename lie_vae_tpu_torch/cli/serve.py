@@ -36,8 +36,13 @@ fixed-batch surface replays one CUDA graph). Examples::
       --checkpoint out/checkpoint.pt --dataset spherecube
   python -m lie_vae_tpu_torch.cli.serve http --aot out/artifact_aot.npz
 
-Not ported: ``--data_devices`` and ``--aot_data_devices`` (ROADMAP.md,
-Queue A, A9: a mesh).
+``--data_devices N`` serves over N devices (``parallel.make_mesh``: each
+chunk split into N contiguous shards, one replica of the weights per
+device; the batch must be a multiple of N): the first N cards, or with
+``--device cpu`` N CPU replicas; on a machine with fewer cards the command
+raises with both counts. ``export --aot --aot_data_devices N`` records N in
+the artifact, which ``--aot`` then serves over N devices (``--data_devices``
+beside it must agree).
 """
 import argparse
 import json
@@ -83,26 +88,19 @@ def _build_model(args, device=None):
         kernel_impl=args.kernel_impl, device=device or args.device)
 
 
-def _not_ported(what, item):
-    raise NotImplementedError(f"{what}: not ported yet (ROADMAP.md, "
-                              f"Queue A, {item})")
-
-
 def _model_args(rest):
     from lie_vae_tpu_torch.cli import main as cli
-    args = cli.parse_args(rest)
-    cli.check_ported(args)
-    return args
+    return cli.parse_args(rest)
 
 
 def _session(opts, rest):
     """An InferenceSession from --artifact / --torch / --checkpoint /
     --name and the model flags ``rest``, or an AotSession from --aot and
     nothing but ``--device``."""
-    from lie_vae_tpu_torch.serve import AotSession, InferenceSession
+    from lie_vae_tpu_torch.parallel import make_mesh
+    from lie_vae_tpu_torch.serve import (AotSession, InferenceSession,
+                                         serving_devices)
 
-    if opts.data_devices:
-        _not_ported("--data_devices", "A9")
     if opts.aot:
         p = argparse.ArgumentParser("--aot", allow_abbrev=False)
         p.add_argument("--device", default="cuda")
@@ -111,11 +109,25 @@ def _session(opts, rest):
             raise SystemExit(f"--aot takes no model flags (the artifact "
                              f"holds the model): {extra}")
         _check_device(dev.device)
-        return AotSession(opts.aot, seed=opts.seed, device=dev.device)
+        with np.load(opts.aot) as z:
+            meta = (json.loads(bytes(z["__aot_meta__"]).decode())
+                    if "__aot_meta__" in z.files else {})
+        recorded = int(meta.get("data_devices", 1))
+        if opts.data_devices and opts.data_devices != recorded:
+            raise SystemExit(
+                f"--data_devices {opts.data_devices} does not match the AOT "
+                f"artifact (exported for {recorded} device(s) on the 'data' "
+                f"axis); re-export with --aot_data_devices "
+                f"{opts.data_devices}")
+        return AotSession(opts.aot, seed=opts.seed, device=dev.device,
+                          devices=serving_devices(recorded, dev.device))
     args = _model_args(rest)
     _check_device(args.device)
-    model = _build_model(args)
     kw = dict(batch_size=opts.batch_size, seed=opts.seed, device=args.device)
+    if opts.data_devices:
+        kw["mesh"] = make_mesh(opts.data_devices, devices=serving_devices(
+            opts.data_devices, args.device))
+    model = _build_model(args)
     if opts.artifact:
         return InferenceSession.from_npz(opts.artifact, model, **kw)
     if opts.torch:
@@ -146,7 +158,10 @@ def _add_session_flags(p):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", help="output .npz path")
     p.add_argument("--data_devices", type=int, default=0,
-                   help="not ported (ROADMAP.md, Queue A, A9)")
+                   help="serve over this many devices ('data' mesh axis; "
+                        "the batch must divide evenly): the first N cards, "
+                        "or N CPU replicas with --device cpu. 0 = one "
+                        "device")
 
 
 def _save_png_grid(images, path):
@@ -194,14 +209,21 @@ def cmd_export(argv):
     p.add_argument("--aot_batch", type=int, default=64,
                    help="the fixed batch of the AOT session's graphs")
     p.add_argument("--aot_data_devices", type=int, default=0,
-                   help="not ported (ROADMAP.md, Queue A, A9)")
+                   help="record this many devices on the 'data' axis: the "
+                        "artifact is then served over as many, each chunk "
+                        "split evenly (the batch must divide). 0 = one")
     p.add_argument("--out", help="output .npz (default <run>/artifact.npz, "
                                  "or artifact_aot.npz with --aot)")
     opts, rest = p.parse_known_args(argv)
-    if opts.aot_data_devices:
-        _not_ported("--aot_data_devices (AOT programs over a mesh)", "A9")
+    if opts.aot_data_devices and not opts.aot:
+        raise SystemExit("--aot_data_devices is an --aot flag")
     # the model only names the JAX paths: no device work
     model = _build_model(_model_args(rest), device="cpu")
+    mesh = None
+    if opts.aot_data_devices:
+        from lie_vae_tpu_torch.parallel import make_mesh
+        n = opts.aot_data_devices
+        mesh = make_mesh(n, devices=["cpu"] * n)
     if opts.aot:
         src = opts.torch or opts.checkpoint or (opts.name and os.path.join(
             "outputs", opts.name, "checkpoint.pt"))
@@ -210,7 +232,7 @@ def cmd_export(argv):
         out = opts.out or os.path.join(os.path.dirname(src),
                                        "artifact_aot.npz")
         export = export_aot_from_torch if opts.torch else export_aot
-        export(src, model, out, batch_size=opts.aot_batch)
+        export(src, model, out, batch_size=opts.aot_batch, mesh=mesh)
     elif opts.torch:
         out = opts.out or os.path.splitext(opts.torch)[0] + ".npz"
         export_npz_from_torch(opts.torch, model, out)

@@ -11,9 +11,12 @@ With ``num_threads`` > 0 (default: the dataset's ``num_workers``, 5 for
 the image datasets, 0 for the toy set) the batches are gathered by a
 thread pool with a bounded lookahead of ``prefetch + num_threads``
 batches, so image decoding (zlib and the PNG unfilter release the GIL)
-overlaps the device's work; they are yielded in the serial order. The
-JAX loader's multi-host sharding belongs to the data-parallel path
-(ROADMAP.md, Queue A, A9).
+overlaps the device's work; they are yielded in the serial order.
+
+``num_shards``/``shard_index`` shard the data over processes as the JAX
+loader does: ``batch_size`` is the global batch, every process draws the
+same seeded permutation, only full global batches are kept (the ragged
+tail is dropped), and each process keeps its contiguous slice of each.
 """
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -24,9 +27,18 @@ import numpy as np
 
 class BatchLoader:
     def __init__(self, dataset, batch_size, shuffle=True, drop_last=True,
-                 seed=0, num_threads=None, prefetch=4):
+                 seed=0, num_threads=None, prefetch=4, num_shards=1,
+                 shard_index=0):
         if batch_size <= 0:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
+        if batch_size % num_shards:
+            raise ValueError(f"the global batch of {batch_size} does not "
+                             f"divide evenly across {num_shards} shards")
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard_index {shard_index} is outside "
+                             f"0..{num_shards - 1}")
+        self.num_shards = num_shards
+        self.shard_index = shard_index
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -41,7 +53,7 @@ class BatchLoader:
 
     def __len__(self):
         n = len(self.dataset)
-        if self.drop_last:
+        if self.drop_last or self.num_shards > 1:
             return n // self.batch_size
         return -(-n // self.batch_size)
 
@@ -52,10 +64,15 @@ class BatchLoader:
             order = rng.permutation(n)
         else:
             order = np.arange(n)
-        stop = (n // self.batch_size) * self.batch_size if self.drop_last \
-            else n
-        return [order[i:i + self.batch_size]
-                for i in range(0, stop, self.batch_size)]
+        drop_last = self.drop_last or self.num_shards > 1
+        stop = (n // self.batch_size) * self.batch_size if drop_last else n
+        batches = [order[i:i + self.batch_size]
+                   for i in range(0, stop, self.batch_size)]
+        if self.num_shards > 1:
+            per = self.batch_size // self.num_shards
+            batches = [b[self.shard_index * per:(self.shard_index + 1) * per]
+                       for b in batches]
+        return batches
 
     def __iter__(self):
         batches = self._index_batches()

@@ -21,6 +21,11 @@ Python float to the input's dtype); a stack's output goes back to
 float32. Without one a layer computes in the promoted dtype of its input
 and its weight, as flax's does. The dtype is a plain attribute: it adds no
 parameter or buffer, so the state_dict keys stay the reference's.
+
+Over a process mesh (``parallel.shard_state``) a layer whose weight is
+split over ``model`` computes its block of output features and gathers
+them, and BatchNorm in train mode takes its statistics over the global
+batch of the ``data`` group.
 """
 import functools
 
@@ -47,12 +52,23 @@ class _CastMixin:
 
     def forward(self, x):
         cdt = self.compute_dtype
-        if cdt is None:
+        split = getattr(self, "model_split", None)
+        if cdt is None and split is None:
             dt = torch.promote_types(x.dtype, self.weight.dtype)
             return super().forward(x.to(dt))
-        y = self._product(x.to(cdt), self.weight.to(cdt))
+        if cdt is None:
+            cdt = torch.promote_types(x.dtype, self.weight.dtype)
+        if split is None:
+            y = self._product(x.to(cdt), self.weight.to(cdt))
+        else:
+            # the weight holds this rank's block of output features
+            # (parallel.shard_state): the product's block, then the
+            # gathered features; the bias stays whole and is added after
+            y = self._product(split.copy_in(x.to(cdt)), self.weight.to(cdt))
+            y = split.gather(y, -1 if isinstance(self, nn.Linear) else 1)
         bias = self.bias.to(cdt)
-        return y + (bias if y.dim() == 2 else bias[:, None, None])
+        return y + (bias if isinstance(self, nn.Linear)
+                    else bias[:, None, None])
 
 
 class Linear(_CastMixin, nn.Linear):
@@ -88,6 +104,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     def _normalize(self, x):
         if not self.training:
             return super().forward(x)
+        if getattr(self, "data_mesh", None) is not None:
+            return self._normalize_global(x, self.data_mesh)
         y = F.batch_norm(x, None, None, self.weight, self.bias, training=True,
                          momentum=0.0, eps=self.eps)
         with torch.no_grad():
@@ -95,6 +113,26 @@ class BatchNorm2d(nn.BatchNorm2d):
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(m * mean)
             self.running_var.mul_(1.0 - m).add_(m * var)
+            self.num_batches_tracked.add_(1)
+        return y
+
+    def _normalize_global(self, x, mesh):
+        """Train mode over a ``data`` mesh (``parallel.shard_state``): the
+        mean and the biased variance of the global batch, each a sum
+        all-reduced over the ``data`` group (two passes: the variance sums
+        squares about the global mean), whose gradients flow back to every
+        rank's rows; every rank holds as many rows."""
+        from lie_vae_tpu_torch.parallel.mesh import AllReduceSum
+        count = x.shape[0] * x.shape[2] * x.shape[3] * mesh.shape["data"]
+        mean = AllReduceSum.apply(x.sum(dim=(0, 2, 3)), mesh) / count
+        d = x - mean[None, :, None, None]
+        var = AllReduceSum.apply((d * d).sum(dim=(0, 2, 3)), mesh) / count
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = d * scale[None, :, None, None] + self.bias[None, :, None, None]
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(m * mean.detach())
+            self.running_var.mul_(1.0 - m).add_(m * var.detach())
             self.num_batches_tracked.add_(1)
         return y
 

@@ -26,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -80,7 +81,9 @@ def _compile(compiler, flags, src, out, name):
     atomically; raises with the compiler's output if it fails or is
     missing. Returns the compiler's stderr."""
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
+    # one file per builder: processes and the threads of one process (a
+    # threaded loader's first batches) may build the same library at once
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [compiler, *flags, "-o", tmp, src]
     t0 = time.perf_counter()
     try:

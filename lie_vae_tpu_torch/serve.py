@@ -22,6 +22,14 @@ and one on the CPU with the same seed draw the same numbers.
 flags: on the card its fixed-batch encode, decode and reconstruct each
 replay one CUDA graph, captured once.
 
+Over a device mesh (``parallel.make_mesh(n, devices=...)``, the ``data``
+axis only) a session holds one replica of the weights per device and
+splits each chunk into contiguous shards, one per device, whose outputs are
+concatenated: the same numbers as the single-device session, the noise
+drawn for the whole chunk as one device draws it. An :func:`export_aot`
+artifact records its ``data_devices``, and :class:`AotSession` rebuilds
+over that many devices, one CUDA graph per surface and device.
+
 Typical use::
 
     model = flagship_model()
@@ -30,6 +38,8 @@ Typical use::
     poses = sess.encode(images)["pose"]
     frames = sess.geodesic(poses[0], poses[1], steps=30)
 """
+import contextlib
+import copy
 import json
 
 import numpy as np
@@ -39,40 +49,65 @@ from lie_vae_tpu_torch import compat, ops
 from lie_vae_tpu_torch.precision import ieee_float32
 
 
+def _data_devices(mesh, batch_size):
+    """A serving mesh's devices, checked: a device mesh of the ``data``
+    axis alone whose size divides the batch."""
+    if mesh.distributed or mesh.shape["model"] != 1:
+        raise ValueError(f"a session serves over a device mesh of the data "
+                         f"axis alone, not {mesh}")
+    n = mesh.shape["data"]
+    if batch_size % n:
+        raise ValueError(f"batch_size {batch_size} must be a multiple of the "
+                         f"mesh's data size {n}")
+    return mesh.devices
+
+
 class InferenceSession:
     """Fixed-batch inference over a trained model with any of the four
-    latents (``so3``, ``normal``, ``vmf``, ``vmfq``) on ``device``."""
+    latents (``so3``, ``normal``, ``vmf``, ``vmfq``) on ``device``, or over
+    a ``mesh`` (``parallel.make_mesh``: the batch split over its ``data``
+    devices, one replica of the weights on each; ``device`` is then its
+    first device)."""
 
     def __init__(self, model, state_dict, batch_size=64, seed=0,
-                 device="cuda"):
-        self.device = torch.device(device)
+                 device="cuda", mesh=None):
+        self.batch_size = int(batch_size)
+        devices = ([torch.device(device)] if mesh is None
+                   else _data_devices(mesh, self.batch_size))
+        self.mesh = mesh
+        self.device = devices[0]
         self.model = model.to(self.device).eval()
         self.model.load_state_dict(state_dict, strict=True)
-        self.batch_size = int(batch_size)
+        self._replicas = [(self.model, self.device)] + [
+            (copy.deepcopy(self.model).to(d).eval(), d) for d in devices[1:]]
         self._gen = torch.Generator(device="cpu").manual_seed(seed)
 
     @classmethod
-    def from_torch(cls, path, model, batch_size=64, seed=0, device="cuda"):
+    def from_torch(cls, path, model, batch_size=64, seed=0, device="cuda",
+                   mesh=None):
         """Serve a reference PyTorch checkpoint (a saved state_dict)."""
         return cls(model, compat.load_torch(path), batch_size=batch_size,
-                   seed=seed, device=device)
+                   seed=seed, device=device, mesh=mesh)
 
     @classmethod
     def from_checkpoint(cls, path, model, batch_size=64, seed=0,
-                        device="cuda"):
+                        device="cuda", mesh=None):
         """Serve the model of a training checkpoint
         (``train.checkpoint.save_state``)."""
         from lie_vae_tpu_torch.train.checkpoint import load_checkpoint
         return cls(model, load_checkpoint(path)["model"],
-                   batch_size=batch_size, seed=seed, device=device)
+                   batch_size=batch_size, seed=seed, device=device,
+                   mesh=mesh)
 
     @classmethod
-    def from_npz(cls, path, model, batch_size=64, seed=0, device="cuda"):
+    def from_npz(cls, path, model, batch_size=64, seed=0, device="cuda",
+                 mesh=None):
         """Serve a JAX deployment artifact (``.npz`` of flat paths), the JAX
         package's or :func:`export_npz`'s."""
         return cls(model, compat.state_dict_from_jax(compat.load_npz(path),
                                                      model),
-                   batch_size=batch_size, seed=seed, device=device)
+                   batch_size=batch_size, seed=seed, device=device,
+                   mesh=mesh)
 
     # ------------------------------------------------------------ plumbing
 
@@ -117,12 +152,61 @@ class InferenceSession:
     def _chunked(self, fn, *arrays):
         """Run ``fn`` on full ``batch_size`` chunks of the row-aligned
         ``arrays`` (moved to the device) and return its outputs, a tensor
-        or a tuple of them, as numpy cut back to N rows."""
+        or a tuple of them, as numpy cut back to N rows. Over a mesh each
+        chunk is split over the replicas (:meth:`_sharded`)."""
         outs = []
         with torch.inference_mode():
             for chunks in self._chunks(*arrays):
-                outs.append(fn(*(c.to(self.device) for c in chunks)))
+                if len(self._replicas) == 1:
+                    outs.append(fn(*(c.to(self.device) for c in chunks)))
+                else:
+                    outs.append(self._sharded(fn, chunks))
         return self._gather(outs, arrays[0].shape[0])
+
+    @contextlib.contextmanager
+    def _on(self, model):
+        """The session's per-chunk methods run on ``model``."""
+        own = self.model
+        self.model = model
+        try:
+            yield
+        finally:
+            self.model = own
+
+    def _sharded(self, fn, chunks):
+        """One chunk over the mesh: contiguous shards, one per replica on
+        its device, the outputs concatenated on the CPU. A vMF encode that
+        draws its noise draws it here for the whole chunk, as the
+        single-device model draws it, and hands each shard its rows."""
+        n = len(self._replicas)
+        per = self.batch_size // n
+        draws = ()
+        if fn == self._encode and len(chunks) == 1 and self.model.is_vmf \
+                and self.model.noise_dims is not None:
+            draws = self._vmf_draws()
+        parts = []
+        for i, (model, dev) in enumerate(self._replicas):
+            sl = slice(i * per, (i + 1) * per)
+            args = [c[sl] for c in chunks]
+            if draws:
+                props, u, v = draws
+                args += [props[..., sl], u[..., sl], v[:, sl]]
+            with self._on(model):
+                parts.append(fn(*(a.to(dev) for a in args)))
+        if isinstance(parts[0], tuple):
+            return tuple(torch.cat([p[j].cpu() for p in parts])
+                         for j in range(len(parts[0])))
+        return torch.cat([p.cpu() for p in parts])
+
+    def _vmf_draws(self):
+        """The vMF sampler's draws for one chunk, in the order the model
+        draws them from the session's generator: proposals and uniforms
+        (NUM_PROPOSALS, 1, B), then the tangent normal (1, B, p)."""
+        from lie_vae_tpu_torch.distributions.vmf import (NUM_PROPOSALS,
+                                                         draw_proposals)
+        b, p = self.batch_size, self.model.noise_dims
+        props = draw_proposals((NUM_PROPOSALS, 1, b), p, self._gen)
+        return props + (torch.randn((1, b, p), generator=self._gen),)
 
     @staticmethod
     def _posterior(stats):
@@ -136,13 +220,17 @@ class InferenceSession:
 
     def _encode(self, x, *eps):
         """One chunk's posterior and sample; ``eps`` is nothing (the
-        session's generator draws), one standard normal, or vMF's pair."""
+        session's generator draws), one standard normal, vMF's pair, or the
+        vMF sampler's draws (proposals, uniforms, tangent normal; each with
+        its sample axis)."""
         if not eps:
             s = self.model.encode(x, n=1, generator=self._gen)[0]
         elif len(eps) == 1:
             s = self.model.encode(x, n=1, eps=eps[0][None])[0]
-        else:
+        elif len(eps) == 2:
             s = self.model.encode(x, n=1, eps=tuple(e[None] for e in eps))[0]
+        else:
+            s = self.model.encode(x, n=1, eps=tuple(eps))[0]
         return (*self._posterior(s), s.z[0])
 
     def _decode(self, z):
@@ -311,48 +399,140 @@ def _jsonable(value):
     return value.tolist() if isinstance(value, np.ndarray) else value
 
 
-def _aot_meta(model, batch_size):
+def _aot_meta(model, batch_size, data_devices=1):
     """``__aot_meta__``: a uint8 JSON blob with the JAX package's keys, the
     torch version and ``model``, the ``LieVAE`` constructor's keywords."""
     if model.r_callback is not None:
         raise ValueError("a model with r_callback cannot be rebuilt from "
                          "its keywords")
+    if batch_size % data_devices:
+        raise ValueError(f"batch_size {batch_size} must be a multiple of the "
+                         f"mesh's data size {data_devices}")
     meta = {"latent_mode": model.latent_mode,
             "normal_dims": model.normal_dims,
             "out_shape": list(model.out_shape),
             "batch_size": int(batch_size), "platforms": ["cuda"],
-            "data_devices": 1, "torch_version": torch.__version__,
+            "data_devices": int(data_devices),
+            "torch_version": torch.__version__,
             "model": {k: _jsonable(v) for k, v in model.config.items()}}
     return {"__aot_meta__": np.frombuffer(json.dumps(meta).encode(),
                                           np.uint8)}
 
 
-def export_aot(checkpoint_path, model, out_path, batch_size=64):
+def _mesh_data(mesh):
+    if mesh is None:
+        return 1
+    if mesh.shape["model"] != 1:
+        raise ValueError(f"an ahead-of-time artifact splits the batch only: "
+                         f"{mesh} has a model axis")
+    return mesh.shape["data"]
+
+
+def export_aot(checkpoint_path, model, out_path, batch_size=64, mesh=None):
     """An ahead-of-time serving artifact of a training checkpoint
     (``checkpoint.pt``): :func:`export_npz`'s layout (flat ``params/...``
     and ``batch_stats/...`` paths, ``__step__``) and ``__aot_meta__``, a
     uint8 JSON blob with the JAX package's keys (``latent_mode``,
     ``normal_dims``, ``out_shape``, ``batch_size``, ``platforms``,
-    ``data_devices``), the torch version and ``model``, the ``LieVAE``
-    constructor's keywords, from which :class:`AotSession` rebuilds the
-    model with no flags.
+    ``data_devices``: the ``data`` size of ``mesh``, 1 without one), the
+    torch version and ``model``, the ``LieVAE`` constructor's keywords,
+    from which :class:`AotSession` rebuilds the model with no flags. The
+    batch must be a multiple of ``data_devices``.
 
     The port writes no programs: there is no StableHLO (``__aot_encode__``
     and its siblings) in the artifact, so the JAX package's ``AotSession``
     cannot serve it (its weights load in the JAX package's ``load_npz``).
     :class:`AotSession` captures the programs on the card instead, as CUDA
-    graphs at ``batch_size``."""
+    graphs at ``batch_size`` (over ``data_devices`` devices, one graph per
+    device at its shard of the batch)."""
     from lie_vae_tpu_torch.train.checkpoint import load_checkpoint
     ckpt = load_checkpoint(checkpoint_path)
     return _save_npz(out_path, ckpt["model"], model, int(ckpt["step"]),
-                     _aot_meta(model, batch_size))
+                     _aot_meta(model, batch_size, _mesh_data(mesh)))
 
 
-def export_aot_from_torch(torch_path, model, out_path, batch_size=64):
+def export_aot_from_torch(torch_path, model, out_path, batch_size=64,
+                          mesh=None):
     """Like :func:`export_aot`, from a reference PyTorch checkpoint (a
     ``torch.save``'d state_dict); the step is 0."""
     return _save_npz(out_path, compat.load_torch(torch_path), model, 0,
-                     _aot_meta(model, batch_size))
+                     _aot_meta(model, batch_size, _mesh_data(mesh)))
+
+
+def serving_devices(n, device="cuda"):
+    """``n`` devices to serve over (a session's mesh, or an artifact
+    exported over ``n`` data devices): the first ``n`` cards (raising, with
+    both counts, on a machine with fewer), or ``n`` CPU replicas."""
+    if torch.device(device).type != "cuda":
+        return [torch.device("cpu")] * n
+    have = torch.cuda.device_count()
+    if have < n:
+        raise ValueError(f"serving over {n} data devices needs {n} cards, "
+                         f"this machine has {have} card(s)")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+class _AotReplica:
+    """One device's share of an :class:`AotSession`: the model, its static
+    buffers at the shard's batch, and on the card one CUDA graph per
+    surface."""
+
+    _decode = InferenceSession._decode
+    _recon = InferenceSession._recon
+    _posterior = staticmethod(InferenceSession._posterior)
+
+    def __init__(self, model, batch, device):
+        from lie_vae_tpu_torch.distributions.vmf import NUM_PROPOSALS
+        self.model, self.device, self.batch = model, device, batch
+        m, b, dev = model, batch, device
+        self.x = torch.zeros((b,) + tuple(m.out_shape), device=dev)
+        self.z = torch.zeros((b,) + _pose_shape(m), device=dev)
+        if m.noise_dims is None:
+            self.noise = None
+        elif m.is_vmf:
+            self.noise = (torch.full((NUM_PROPOSALS, 1, b), 0.5, device=dev),
+                          torch.ones((NUM_PROPOSALS, 1, b), device=dev),
+                          torch.zeros((1, b, m.noise_dims), device=dev))
+        else:
+            self.noise = torch.zeros((1, b, m.noise_dims), device=dev)
+        self.fns = {"encode": self._encode_static,
+                    "decode": lambda: self._decode(self.z),
+                    "reconstruct": lambda: self._recon(self.x)}
+        self.graphs = {}
+        if dev.type == "cuda":
+            self._capture()
+
+    def _encode_static(self):
+        s = self.model.encode(self.x, n=1, eps=self.noise)[0]
+        return (*self._posterior(s), s.z[0])
+
+    def _capture(self):
+        """Capture one graph per surface; raises if a capture fails."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.inference_mode(), ieee_float32(), \
+                torch.cuda.device(self.device):
+            with torch.cuda.stream(side):
+                for fn in self.fns.values():
+                    for _ in range(2):
+                        fn()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            torch.cuda.synchronize(self.device)
+            for name, fn in self.fns.items():
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    out = fn()
+                self.graphs[name] = (graph, out)
+
+    def run(self, name):
+        """The surface's outputs over the static inputs: a replay of its
+        graph on the card, the function itself on the CPU."""
+        if self.device.type != "cuda":
+            return self.fns[name]()
+        graph, out = self.graphs[name]
+        with torch.cuda.device(self.device):
+            graph.replay()
+        return out
 
 
 class AotSession(InferenceSession):
@@ -374,13 +554,20 @@ class AotSession(InferenceSession):
     against kappa staying inside the graph (a given accepted draw enters as
     the first proposal with uniform 0, which accepts it). The kernels count
     a launch at capture and none at a replay; ``replays`` counts each
-    surface's replays. On the CPU the same fixed-batch functions run
-    eagerly over the same buffers. ``close()`` frees the graphs.
+    surface's replays (one per device and chunk). On the CPU the same
+    fixed-batch functions run eagerly over the same buffers. ``close()``
+    frees the graphs.
+
+    An artifact exported over ``data_devices`` devices is served over as
+    many: ``devices`` (default :func:`serving_devices`, which raises on a
+    machine with fewer cards; ``device="cpu"`` gives CPU replicas), one
+    replica and one graph per surface on each, every chunk split into
+    contiguous shards.
 
     The JAX package's AOT artifacts hold StableHLO programs and no model
     keywords; given one, this raises."""
 
-    def __init__(self, path, seed=0, device="cuda"):
+    def __init__(self, path, seed=0, device="cuda", devices=None):
         from lie_vae_tpu_torch.models import LieVAE
         with np.load(path) as z:
             flat = {k: z[k] for k in z.files}
@@ -398,116 +585,93 @@ class AotSession(InferenceSession):
                 "programs do not run here; re-export the checkpoint with "
                 "lie_vae_tpu_torch.serve.export_aot, or serve the weights "
                 "with InferenceSession.from_npz and the model flags")
-        if int(meta.get("data_devices", 1)) != 1:
-            raise NotImplementedError(
-                "an artifact exported over a mesh: not ported yet "
-                "(ROADMAP.md, Queue A, A9)")
-        model = LieVAE(**meta["model"], device=device)
+        n = int(meta.get("data_devices", 1))
+        devices = [torch.device(d) for d in
+                   (devices if devices is not None
+                    else serving_devices(n, device))]
+        if len(devices) != n:
+            raise ValueError(f"{path} was exported over {n} data devices; "
+                             f"{len(devices)} given")
         weights = {k: v for k, v in flat.items() if not k.startswith("__")}
-        super().__init__(model, compat.state_dict_from_jax(weights, model),
-                         batch_size=int(meta["batch_size"]), seed=seed,
-                         device=device)
+        batch = int(meta["batch_size"])
+        models = []
+        for d in devices:
+            model = LieVAE(**meta["model"], device=d)
+            model.load_state_dict(compat.state_dict_from_jax(weights, model),
+                                  strict=True)
+            models.append(model.eval())
+        super().__init__(models[0], models[0].state_dict(), batch_size=batch,
+                         seed=seed, device=devices[0])
         self.meta = meta
         self.replays = dict.fromkeys(_SURFACES, 0)
-        self._graphs = {}
-        self._buffers()
-        if self.device.type == "cuda":
-            self._capture()
-
-    def _buffers(self):
-        """The static inputs: images (B, *out_shape), poses (B, *pose) and
-        the encode's noise: (1, B, noise_dims), or for vMF the proposals
-        and uniforms (NUM_PROPOSALS, 1, B) and the tangent normal (1, B,
-        4), or nothing for a deterministic model."""
-        from lie_vae_tpu_torch.distributions.vmf import NUM_PROPOSALS
-        m, b, dev = self.model, self.batch_size, self.device
-        self._x = torch.zeros((b,) + tuple(m.out_shape), device=dev)
-        self._z = torch.zeros((b,) + _pose_shape(m), device=dev)
-        if m.noise_dims is None:
-            self._noise = None
-        elif m.is_vmf:
-            self._noise = (torch.full((NUM_PROPOSALS, 1, b), 0.5, device=dev),
-                           torch.ones((NUM_PROPOSALS, 1, b), device=dev),
-                           torch.zeros((1, b, m.noise_dims), device=dev))
-        else:
-            self._noise = torch.zeros((1, b, m.noise_dims), device=dev)
-        self._fns = {"encode": self._encode_static,
-                     "decode": lambda: self._decode(self._z),
-                     "reconstruct": lambda: self._recon(self._x)}
-        # InferenceSession's surfaces hand _chunked these per-chunk methods
+        self._aot = [_AotReplica(m, batch // n, d)
+                     for m, d in zip(models, devices)]
         self._surface = {self._encode: "encode", self._decode: "decode",
                          self._recon: "reconstruct"}
 
-    def _encode_static(self):
-        s = self.model.encode(self._x, n=1, eps=self._noise)[0]
-        return (*self._posterior(s), s.z[0])
-
-    def _capture(self):
-        """Capture one graph per surface; raises if a capture fails."""
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.inference_mode(), ieee_float32():
-            with torch.cuda.stream(side):
-                for fn in self._fns.values():
-                    for _ in range(2):
-                        fn()
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            torch.cuda.synchronize(self.device)
-            for name, fn in self._fns.items():
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph):
-                    out = fn()
-                self._graphs[name] = (graph, out)
-
     def close(self):
         """Free the graphs and their memory pools."""
-        self._graphs.clear()
+        for r in self._aot:
+            r.graphs.clear()
 
-    def _run(self, name):
-        """The surface's outputs over the static inputs: a replay of its
-        graph on the card (counted in ``replays``), the function itself on
-        the CPU."""
-        if self.device.type != "cuda":
-            return self._fns[name]()
-        graph, out = self._graphs[name]
-        graph.replay()
-        self.replays[name] += 1
-        return out
-
-    def _stage_noise(self, eps):
-        """Copy a chunk's noise into the static buffer: ``eps`` is () (the
-        session's generator draws, as InferenceSession's model does per
-        chunk), a standard normal (B, dims), or vMF's pair (accepted draw
-        (B,), tangent normal (B, 4))."""
-        from lie_vae_tpu_torch.distributions.vmf import draw_proposals
-        if self._noise is None:
-            return
-        if not self.model.is_vmf:
-            self._noise[0].copy_(eps[0])
-            return
-        props, u, v = self._noise
+    def _chunk_noise(self, eps):
+        """A chunk's noise in the buffers' layout, on the CPU: ``eps`` is ()
+        (the session's generator draws, as InferenceSession's model does
+        per chunk), a standard normal (B, dims), or vMF's pair (accepted
+        draw (B,), tangent normal (B, 4)); None for a deterministic
+        model."""
+        from lie_vae_tpu_torch.distributions.vmf import NUM_PROPOSALS
+        m, b = self.model, self.batch_size
+        if m.noise_dims is None:
+            return None
+        if not m.is_vmf:
+            return eps[0][None]
         if eps:
-            props[0, 0].copy_(eps[0])
-            u[0].zero_()
-            v[0].copy_(eps[1])
+            props = torch.full((NUM_PROPOSALS, 1, b), 0.5)
+            u = torch.ones((NUM_PROPOSALS, 1, b))
+            props[0, 0] = eps[0]
+            u[0] = 0.0
+            return props, u, eps[1][None]
+        return self._vmf_draws()
+
+    @staticmethod
+    def _load_noise(r, noise, sl):
+        if noise is None:
             return
-        p = self.model.noise_dims
-        drawn = draw_proposals(tuple(props.shape), p, self._gen)
-        normal = torch.randn(tuple(v.shape), generator=self._gen)
-        for dst, src in zip(self._noise, drawn + (normal,)):
+        if isinstance(noise, torch.Tensor):
+            r.noise.copy_(noise[:, sl])
+            return
+        props, u, v = noise
+        for dst, src in zip(r.noise, (props[..., sl], u[..., sl], v[:, sl])):
             dst.copy_(src)
 
     def _chunked(self, fn, *arrays):
-        """Each chunk copied into the static input of ``fn``'s surface, the
-        surface replayed, its outputs copied out."""
+        """Each chunk split over the replicas (one, on a single device):
+        every shard copied into its replica's static input of ``fn``'s
+        surface, then every replica's surface replayed, then the outputs
+        (each replica's own static buffers) copied out and concatenated,
+        so that the replicas' devices run at the same time."""
         name = self._surface[fn]
         outs = []
         with torch.inference_mode():
             for chunks in self._chunks(*arrays):
-                (self._z if name == "decode" else self._x).copy_(chunks[0])
-                if name == "encode":
-                    self._stage_noise(chunks[1:])
-                out = self._run(name)
-                outs.append(tuple(o.cpu() for o in out)
-                            if isinstance(out, tuple) else out.cpu())
+                noise = (self._chunk_noise(chunks[1:]) if name == "encode"
+                         else None)
+                for i, r in enumerate(self._aot):
+                    sl = slice(i * r.batch, (i + 1) * r.batch)
+                    (r.z if name == "decode" else r.x).copy_(chunks[0][sl])
+                    self._load_noise(r, noise, sl)
+                replayed = []
+                for r in self._aot:
+                    replayed.append(r.run(name))
+                    if r.device.type == "cuda":
+                        self.replays[name] += 1
+                parts = [tuple(o.cpu() for o in out)
+                         if isinstance(out, tuple) else out.cpu()
+                         for out in replayed]
+                if isinstance(parts[0], tuple):
+                    outs.append(tuple(torch.cat([p[j] for p in parts])
+                                      for j in range(len(parts[0]))))
+                else:
+                    outs.append(torch.cat(parts))
         return self._gather(outs, arrays[0].shape[0])

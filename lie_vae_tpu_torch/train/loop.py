@@ -25,6 +25,12 @@ and no padding: a ragged evaluation batch is evaluated as it is.
 
 Both run their device work in IEEE float32 (``precision.ieee_float32``: no
 TF32 convolutions or matmuls), the caller's settings restored after.
+
+Over a process mesh (``parallel``) a step computes what the single-process
+step computes on the global batch: each rank takes its contiguous rows of
+the batch and of the noise drawn for all of it, BatchNorm takes the global
+batch's statistics, the gradients are averaged over the ``data`` group
+before the clip, and the metrics are the global batch's.
 """
 import math
 import os
@@ -34,6 +40,7 @@ import numpy as np
 import torch
 
 from lie_vae_tpu_torch.data.loader import BatchLoader
+from lie_vae_tpu_torch.distributions.vmf import NUM_PROPOSALS, draw_proposals
 from lie_vae_tpu_torch.losses import (encoder_continuity_loss,
                                       equivariance_loss)
 from lie_vae_tpu_torch.precision import ieee_float32
@@ -53,7 +60,7 @@ def train_step(model, optimizer, x, beta, eps=None, generator=None,
                elbo_samples=1, control=None, control_p=1,
                monitor_sigma=False, equivariance_lamb=None,
                encoder_continuity_lamb=None, equivariance_rotate="shear",
-               theta=None, eq_eps=None):
+               theta=None, eq_eps=None, mesh=None):
     """One optimizer step on the batch ``x`` (NHWC images, uint8 or float,
     or toy spectra; moved to the model's device, uint8 scaled to [0, 1] in
     the model's dtype). ``eps`` (elbo_samples, B, model.noise_dims) fixes
@@ -73,7 +80,13 @@ def train_step(model, optimizer, x, beta, eps=None, generator=None,
     ('shear' or 'gather') and encodes it again in train mode with the noise
     ``eq_eps`` (1, B, noise_dims), or the vMF pair; each is drawn from
     ``generator`` when not given (theta uniform in [0, 2 pi)). The
-    continuity loss pairs rows (2i, 2i + 1)."""
+    continuity loss pairs rows (2i, 2i + 1).
+
+    Over a process ``mesh`` (``parallel.make_mesh`` after
+    ``parallel.shard_state`` of the model) ``x``, ``eps``, ``theta`` and
+    ``eq_eps`` are this rank's rows of the global batch's: the gradients
+    are averaged over the ``data`` group before the optimizer's step, and
+    the metrics are the global batch's (``sigma_max`` its maximum)."""
     if control is not None and control_p not in (1, 2):
         raise ValueError("Wrong control p")
     param = next(model.parameters())
@@ -129,11 +142,28 @@ def train_step(model, optimizer, x, beta, eps=None, generator=None,
         loss = loss + encoder_continuity_lamb * cont
         metrics["encoder_continuity"] = cont.detach()
     loss.backward()
+    if mesh is not None:
+        mesh.average_gradients(model.parameters())
     optimizer.step()
     metrics["loss"] = loss.detach()
     if monitor_sigma:
         metrics["sigma_max"] = torch.max(stats[0].inner.sigma).detach()
+    if mesh is not None and mesh.shape["data"] > 1:
+        _global_metrics(metrics, mesh)
     return metrics
+
+
+def _global_metrics(metrics, mesh):
+    """The ranks' metrics, means over equal row blocks, as the global
+    batch's: averaged over the ``data`` group, ``sigma_max`` its maximum."""
+    names = [k for k in metrics if k not in ("kls", "sigma_max")]
+    vec = torch.stack([metrics[k] for k in names] + list(metrics["kls"]))
+    vec = mesh.all_reduce_(vec.clone(), "data") / mesh.shape["data"]
+    metrics.update(zip(names, vec[:len(names)].unbind()))
+    metrics["kls"] = list(vec[len(names):].unbind())
+    if "sigma_max" in metrics:
+        metrics["sigma_max"] = mesh.all_gather(
+            metrics["sigma_max"].reshape(1), "data").max()
 
 
 class UnsupervisedExperiment:
@@ -161,8 +191,26 @@ class UnsupervisedExperiment:
     the global step (the CLI's ``LinearSchedule``s), each loss computed on
     every step once its schedule is given; the rotation angles and the
     second encoder pass's noise come from the training stream after the
-    step's posterior noise. ``mesh`` (data parallelism, ROADMAP.md, Queue A,
-    A9) raises.
+    step's posterior noise.
+
+    ``mesh`` (``parallel.make_mesh`` over a process group) trains data- and
+    model-parallel: the model is placed by ``parallel.shard_state`` (weights
+    broadcast from rank 0, the big layers split over ``model``, BatchNorm
+    over the ``data`` group) and ``init_state``'s full tensors are cut to
+    it; ``batch_size`` is the global batch, and each rank loads its rows of
+    it (``BatchLoader(num_shards, shard_index)``; with ``device_data`` it
+    holds the whole set and gathers its rows of the global index batch);
+    every rank draws the noise of the whole batch from the same streams and
+    keeps its rows, so a step equals the single-process one. ``test()``
+    pads each evaluation batch to the ``data`` size, masks the padding and
+    all-reduces the sums, the same uniform mean over batches; the IW-LL
+    runs replicated. Only rank 0 logs and prints.
+
+    ``noise``, a callable ``(stream, shape)`` returning standard normals on
+    the CPU, stands in for the streams' generators wherever they draw
+    posterior noise (a reference that draws its own noise hands it over
+    so; a vMF sampler still draws from its stream). ``report_freq=None``
+    makes ``train()`` report never, nor run the ``test()`` of a report.
     """
 
     def __init__(self, *, model, train_dataset, test_dataset, beta_schedule,
@@ -171,11 +219,21 @@ class UnsupervisedExperiment:
                  equivariance_lamb=None, encoder_continuity_lamb=None,
                  control=None, control_p=1, log=None, seed=0, mesh=None,
                  log_histograms=False, init_state=None, steps_per_call=1,
-                 device_data=False, equivariance_rotate="shear"):
+                 device_data=False, equivariance_rotate="shear",
+                 noise=None):
         if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel training over a mesh is not ported yet "
-                "(ROADMAP.md, Queue A, A9)")
+            if not mesh.distributed:
+                raise ValueError("training takes a process mesh "
+                                 "(parallel.make_mesh after "
+                                 "initialize_distributed)")
+            if batch_size % mesh.shape["data"]:
+                raise ValueError(f"the global batch of {batch_size} does "
+                                 f"not split over the data axis of size "
+                                 f"{mesh.shape['data']}")
+            from lie_vae_tpu_torch.parallel import shard_state
+            shard_state(model, mesh)
+        self.mesh = mesh
+        self._is_main = mesh is None or mesh.is_main
         if equivariance_rotate not in ("shear", "gather"):
             raise ValueError(f"unknown equivariance_rotate "
                              f"{equivariance_rotate!r}")
@@ -195,6 +253,8 @@ class UnsupervisedExperiment:
         self.encoder_continuity_lamb = encoder_continuity_lamb
         self.equivariance_rotate = equivariance_rotate
         self.log = log if isinstance(log, MetricWriter) else MetricWriter(log)
+        if not self._is_main:
+            self.log = MetricWriter(None)
         self.log_histograms = log_histograms
         self.best_value = np.inf
         self.steps_per_call = max(1, int(steps_per_call))
@@ -203,9 +263,12 @@ class UnsupervisedExperiment:
             clip_grads=clip_grads, selective_clip=selective_clip)
         if init_state is not None:
             apply_state(init_state, model, self.optimizer)
+        shards = ({} if mesh is None else
+                  {"num_shards": mesh.shape["data"],
+                   "shard_index": mesh.data_index})
         self.train_loader = BatchLoader(train_dataset, batch_size,
                                         shuffle=True, drop_last=True,
-                                        seed=seed)
+                                        seed=seed, **shards)
         self.test_loader = BatchLoader(test_dataset, batch_size,
                                        shuffle=False, drop_last=False)
         self._gens = {
@@ -225,7 +288,9 @@ class UnsupervisedExperiment:
             self._device_test = (self._device_train
                                  if test_dataset is train_dataset
                                  else self._cache_device(test_dataset))
+        self._noise_fn = noise
         self.last_ll = None
+        self.last_metrics = None
 
     def _cache_device(self, dataset):
         """The dataset's inputs, all of them, on the model's device (uint8
@@ -233,10 +298,16 @@ class UnsupervisedExperiment:
         (2 for a paired dataset, whose ``prep_batch`` flattens the pairs).
         An image dataset decodes every file first through its
         ``warm_cache`` (one bulk read of its disk cache after the first
-        decode)."""
+        decode); over a mesh rank 0 writes that cache before the others
+        read it."""
         warm = getattr(dataset, "warm_cache", None)
         if warm is not None:
-            warm()
+            if self._is_main:
+                warm()
+            if self.mesh is not None:
+                self.mesh.barrier()
+                if not self._is_main:
+                    warm()
         images = dataset.prep_batch(dataset.gather(np.arange(len(dataset))))
         rows = torch.as_tensor(np.asarray(images[-1]), device=self.device)
         return rows, rows.shape[0] // len(dataset)
@@ -244,22 +315,83 @@ class UnsupervisedExperiment:
     def _eps(self, stream, n, batch):
         """Standard normal posterior noise (n, batch, model.noise_dims) from
         the stream's generator, on the model's device in its dtype; None for
-        a deterministic model, which draws none."""
+        a deterministic model, which draws none. Over a mesh ``batch`` is
+        this rank's rows: the noise of the global batch is drawn and the
+        rank's rows kept."""
         dims = self.model.noise_dims
         if dims is None:
             return None
-        return torch.randn((n, batch, dims), generator=self._gens[stream]).to(
-            self.device, self.dtype)
+        eps = self._randn(stream, (n, self._global(batch), dims))
+        return self._local(eps, batch, 1).to(self.device, self.dtype)
 
-    def _noise(self, stream, n, batch):
+    def _randn(self, stream, shape):
+        """Standard normals of ``shape`` from the stream's generator, on
+        the CPU in float32 whatever torch's default dtype (or from
+        ``noise``): every posterior noise but vMF's is drawn here."""
+        if self._noise_fn is not None:
+            return self._noise_fn(stream, shape)
+        return torch.randn(shape, generator=self._gens[stream],
+                           dtype=torch.float32)
+
+    def _global(self, rows):
+        return rows if self.mesh is None else rows * self.mesh.shape["data"]
+
+    def _local(self, t, rows, dim):
+        """This rank's ``rows`` of a global tensor along ``dim`` (all of it
+        without a mesh)."""
+        if self.mesh is None:
+            return t
+        return t.narrow(dim, self.mesh.data_index * rows, rows)
+
+    def _vmf_eps(self, stream, n, rows):
+        """vMF's noise for n samples of the global batch as the sampler
+        draws it from the stream (its proposals and uniforms
+        (NUM_PROPOSALS, n, rows), then the tangent normal (n, rows, p)),
+        all of it on the CPU."""
+        gen, p = self._gens[stream], self.model.noise_dims
+        props = draw_proposals((NUM_PROPOSALS, n, rows), p, gen,
+                               dtype=self.dtype)
+        return props + (torch.randn((n, rows, p), generator=gen,
+                                    dtype=self.dtype),)
+
+    def _noise(self, stream, n, batch, local=True):
         """The posterior noise keywords of n samples of ``batch`` items from
         the stream: ``eps`` (:meth:`_eps`); for a vMF model the stream's
-        ``generator`` itself; nothing for a deterministic model."""
+        ``generator`` itself, or over a mesh the sampler's draws for the
+        global batch, this rank's rows of them; nothing for a deterministic
+        model."""
         if self.model.noise_dims is not None \
                 and getattr(self.model, "is_vmf", False):
-            return {"generator": self._gens[stream]}
-        eps = self._eps(stream, n, batch)
+            if self.mesh is None or not local:
+                return {"generator": self._gens[stream]}
+            props, u, v = self._vmf_eps(stream, n, self._global(batch))
+            return {"eps": (self._local(props, batch, 2).to(self.device),
+                            self._local(u, batch, 2).to(self.device),
+                            self._local(v, batch, 1).to(self.device))}
+        dims = self.model.noise_dims
+        if local or self.mesh is None:
+            eps = self._eps(stream, n, batch)
+        elif dims is not None:       # the replicated IW-LL: every row
+            eps = self._randn(stream, (n, batch, dims)).to(self.device,
+                                                           self.dtype)
+        else:
+            eps = None
         return {} if eps is None else {"eps": eps}
+
+    def _step_inputs(self, global_it, batch):
+        """A train step's noise and regularizer keywords for ``batch`` rows,
+        drawn in the order the single-process step draws them (a vMF model
+        draws its posterior noise inside the step, after the rotation
+        angles, and then the second pass's)."""
+        if self.mesh is None or not getattr(self.model, "is_vmf", False) \
+                or self.model.noise_dims is None:
+            return (self._noise("train", self.elbo_samples, batch),
+                    self._regularizers(global_it, batch))
+        reg = self._regularizers(global_it, batch)
+        noise = self._noise("train", self.elbo_samples, batch)
+        if self.equivariance_lamb is not None:
+            reg["eq_eps"] = self._noise("train", 1, batch)["eps"]
+        return noise, reg
 
     def _batches(self, loader, cached):
         """The loader's batches of inputs: host arrays, or device tensors
@@ -285,10 +417,10 @@ class UnsupervisedExperiment:
                 global_it)
         if self.equivariance_lamb is not None:
             gen = self._gens["train"]
+            theta = torch.rand((self._global(batch),), generator=gen)
             kw.update(equivariance_lamb=self.equivariance_lamb(global_it),
                       equivariance_rotate=self.equivariance_rotate,
-                      theta=torch.rand((batch,), generator=gen)
-                      * (2.0 * math.pi))
+                      theta=self._local(theta, batch, 0) * (2.0 * math.pi))
             if not getattr(self.model, "is_vmf", False):
                 kw["eq_eps"] = self._eps("train", 1, batch)
         return kw
@@ -301,7 +433,10 @@ class UnsupervisedExperiment:
         """Full pass over the evaluation loader in eval mode; returns the
         (recon, kl, *kls) means as float64 numpy: per batch the mean over
         its rows, then uniform over batches, the ragged tail included (the
-        reference's semantics, unsupervised.py:58-67)."""
+        reference's semantics, unsupervised.py:58-67). Over a mesh every
+        rank evaluates its rows of each batch (:meth:`_test_mesh`)."""
+        if self.mesh is not None:
+            return self._test_mesh()
         self.model.eval()
         vals = []
         for x in self._batches(self.test_loader, self._device_test):
@@ -313,6 +448,10 @@ class UnsupervisedExperiment:
             vals.append(torch.stack([torch.mean(recon), torch.mean(kl_sum)]
                                     + [torch.mean(k) for k in kls]))
         self.model.train()
+        return self._mean_over_batches(vals)
+
+    @staticmethod
+    def _mean_over_batches(vals):
         if not vals:
             raise RuntimeError(
                 "test(): evaluation loader produced no batches - test "
@@ -320,35 +459,105 @@ class UnsupervisedExperiment:
                 "the validation split size.")
         return torch.stack(vals).double().mean(0).cpu().numpy()
 
+    def _test_mesh(self):
+        """test() over the mesh: each global batch of b items padded to a
+        multiple of the ``data`` size by repeating its last item, this
+        rank's contiguous items of it evaluated with its rows of the noise
+        drawn for the b items, the padding masked out of the sums, the sums
+        all-reduced over ``data`` and divided by the batch's rows; then the
+        uniform mean over batches."""
+        mesh, k = self.mesh, self.mesh.shape["data"]
+        dataset = self.test_dataset
+        prep = getattr(dataset, "prep_batch", lambda b: b)
+        loader = self.test_loader
+        batches = loader._index_batches()
+        loader.epoch += 1
+        self.model.eval()
+        vals = []
+        for idx in batches:
+            b = len(idx)
+            padded = np.concatenate([idx, np.repeat(idx[-1:], (-b) % k)])
+            sl = mesh.rows(len(padded))
+            local = padded[sl]
+            valid = max(0, min(b - sl.start, len(local)))
+            if self._device_test is None:
+                x = torch.as_tensor(
+                    np.asarray(prep(dataset.gather(local))[-1]),
+                    device=self.device)
+            else:
+                rows, factor = self._device_test
+                x = rows[(torch.as_tensor(local, device=self.device)[:, None]
+                          * factor + torch.arange(factor, device=self.device)
+                          ).reshape(-1)]
+            factor = x.shape[0] // len(local)
+            x = _normalize(x, self.dtype)
+            # the noise of the batch's b items, as one process draws it;
+            # the padding's rows take the last row's
+            take = torch.arange(factor * sl.start, factor * sl.stop).clamp(
+                max=factor * b - 1)
+            noise = self._eval_noise(factor * b, take)
+            recon, kl_sum, kls, _ = self.model.elbo(
+                x, n=self.elbo_samples, **noise)
+            mask = (torch.arange(x.shape[0], device=self.device)
+                    < factor * valid).to(recon.dtype)
+            sums = torch.stack([torch.sum(v * mask) for v in
+                                [torch.mean(recon, 0), kl_sum] + list(kls)])
+            vals.append(mesh.all_reduce_(sums, "data") / (factor * b))
+        self.model.train()
+        return self._mean_over_batches(vals)
+
+    def _eval_noise(self, rows, take):
+        """The evaluation stream's noise keywords for ``rows`` global rows,
+        the rows ``take`` of it."""
+        dims, n = self.model.noise_dims, self.elbo_samples
+        if dims is None:
+            return {}
+        if getattr(self.model, "is_vmf", False):
+            props, u, v = self._vmf_eps("eval", n, rows)
+            return {"eps": (props[:, :, take].to(self.device),
+                            u[:, :, take].to(self.device),
+                            v[:, take].to(self.device))}
+        eps = self._randn("eval", (n, rows, dims))
+        return {"eps": eps[:, take].to(self.device, self.dtype)}
+
     # ------------------------------------------------------------- train
 
     @ieee_float32()
-    def train(self, epoch):
+    def train(self, epoch, max_steps=None, on_step=None):
         """One epoch. Reference: unsupervised.py:69-156 (same reporting
-        cadence, tags and printed line)."""
+        cadence, tags and printed line). ``max_steps`` ends the epoch after
+        that many steps (a report comes then only if one is due);
+        ``on_step(metrics)`` is called after each step."""
         num_batches = len(self.train_loader)
+        n = num_batches if max_steps is None else min(num_batches, max_steps)
         K = self.steps_per_call
         steps_since_report = 0
         start = time.time()
         group = []
         batches = self._batches(self.train_loader, self._device_train)
         for it, x in enumerate(batches):
+            if it == n:
+                break
             group.append((epoch * num_batches + it + 1, x))
-            if len(group) < K and it + 1 < num_batches:
+            if len(group) < K and it + 1 < n:
                 continue
             for global_it, xb in group:
                 beta = self.beta_schedule(global_it)
-                noise = self._noise("train", self.elbo_samples, xb.shape[0])
-                reg = self._regularizers(global_it, xb.shape[0])
+                noise, reg = self._step_inputs(global_it, xb.shape[0])
                 metrics = train_step(
                     self.model, self.optimizer, xb, beta, **noise, **reg,
                     elbo_samples=self.elbo_samples, control=self.control,
                     control_p=self.control_p,
-                    monitor_sigma=self._monitor_sigma)
-                self._window.append(metrics)
+                    monitor_sigma=self._monitor_sigma, mesh=self.mesh)
+                if self.report_freq is not None:
+                    self._window.append(metrics)
+                self.last_metrics = metrics
+                if on_step is not None:
+                    on_step(metrics)
             steps_since_report += len(group)
-            if steps_since_report >= self.report_freq \
-                    or it + 1 == num_batches:
+            if self.report_freq is not None and (
+                    steps_since_report >= self.report_freq
+                    or it + 1 == num_batches):
                 self._report(epoch, it, group[-1][0], beta, start,
                              n_steps=steps_since_report, lambs=reg)
                 steps_since_report = 0
@@ -382,7 +591,7 @@ class UnsupervisedExperiment:
         if self._monitor_sigma:
             sigma_max = means["sigma_max"]
             self.log.add_scalar("sigma_max", sigma_max, global_it)
-            if sigma_max > self._sigma_valid_bound:
+            if sigma_max > self._sigma_valid_bound and self._is_main:
                 print(f"WARNING: posterior sigma_max {sigma_max:.1f} exceeds "
                       f"the wrapped-density validity bound "
                       f"~{self._sigma_valid_bound:.1f} for its shell count: "
@@ -405,6 +614,8 @@ class UnsupervisedExperiment:
         self.log.flush()
 
         dt = (time.time() - start) / max(n_steps, 1)
+        if not self._is_main:
+            return
         print(("Epoch {} it {} train recon {:.4f} kl {:.4f}"
                " test recon {:.4f} kl {:.4f} ({:.3f}s)")
               .format(epoch, it + 1, train_recon, train_kl,
@@ -417,16 +628,16 @@ class UnsupervisedExperiment:
         """Trace ``n_calls`` training steps on the first batch with
         ``torch.profiler`` (after one untraced step) into
         ``log_dir/trace.json`` (chrome trace format). The steps update the
-        model, as the JAX harness's profiled steps do."""
+        model, as the JAX harness's profiled steps do; over a mesh every
+        rank steps and rank 0 writes its trace."""
         x = next(iter(self._batches(self.train_loader, self._device_train)))
         beta = float(self.beta_schedule(1))
 
         def step():
-            train_step(self.model, self.optimizer, x, beta,
-                       **self._noise("train", self.elbo_samples, x.shape[0]),
-                       **self._regularizers(1, x.shape[0]),
+            noise, reg = self._step_inputs(1, x.shape[0])
+            train_step(self.model, self.optimizer, x, beta, **noise, **reg,
                        elbo_samples=self.elbo_samples, control=self.control,
-                       control_p=self.control_p)
+                       control_p=self.control_p, mesh=self.mesh)
 
         step()
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -437,6 +648,8 @@ class UnsupervisedExperiment:
                 step()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+        if not self._is_main:
+            return
         os.makedirs(log_dir, exist_ok=True)
         path = os.path.join(log_dir, "trace.json")
         prof.export_chrome_trace(path)
@@ -448,7 +661,8 @@ class UnsupervisedExperiment:
     @ieee_float32()
     def log_likelihood(self, dataset, n=500, max_items=None, batch_size=1,
                        n_chunk=None, return_items=False):
-        """Importance-sampled LL over a dataset, in eval mode.
+        """Importance-sampled LL over a dataset, in eval mode (over a mesh
+        every rank evaluates every item, replicated).
 
         Reference: main.py:134-143 (n=500, batch 1, eval mode). Items are
         evaluated ``batch_size`` at a time (the estimate is per item, so
@@ -481,8 +695,8 @@ class UnsupervisedExperiment:
             lses, sums = [], 0.0
             for _ in range(chunks):
                 w = self.model.log_weights(
-                    x, n=n_chunk,
-                    **self._noise("ll", n_chunk, x.shape[0])).double()
+                    x, n=n_chunk, **self._noise("ll", n_chunk, x.shape[0],
+                                                local=False)).double()
                 lses.append(torch.logsumexp(w, dim=0))
                 sums = sums + w.sum(0)
             lse = torch.logsumexp(torch.stack(lses), dim=0)

@@ -16,6 +16,11 @@ then Adam (b1 0.9, b2 0.999, eps 1e-8) with optax's arithmetic:
 ``torch.nn.utils.clip_grad_norm_`` would scale by max_norm / (norm + 1e-6)
 at every norm, a 10% change near the default clip of 1e-5, so the clip is
 written out. ``step`` leaves ``p.grad`` as the backward pass left it.
+
+Over a process mesh the gradients come in averaged over the ``data`` group
+(``train_step``); a parameter split over ``model``
+(``parallel.shard_state``) enters the global norm once per block, and
+Adam, elementwise, runs on each block as it is.
 """
 import torch
 
@@ -53,8 +58,19 @@ class Optimizer:
             p.grad = None
 
     def _clip(self, grads):
-        picked = [g for g, m in zip(grads, self.clip_mask) if m]
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in picked))
+        picked = [(g, getattr(p, "model_split", None))
+                  for g, p, m in zip(grads, self.params, self.clip_mask) if m]
+        split = [s for _, s in picked if s is not None]
+        if not split:
+            norm = torch.sqrt(sum(torch.sum(g * g) for g, _ in picked))
+        else:
+            # a split tensor's blocks are counted once each (summed over
+            # 'model'), a replicated tensor once
+            sq = sum(torch.sum(g * g) for g, s in picked if s is None)
+            sq_split = sum(torch.sum(g * g) for g, s in picked
+                           if s is not None)
+            norm = torch.sqrt(sq + split[0].mesh.all_reduce_(
+                sq_split.reshape(1), "model")[0])
         keep = norm < self.clip_grads
         one = torch.ones_like(norm)
         denom = torch.where(keep, one, norm)

@@ -19,8 +19,8 @@ on the CPU at a small size.
 - a JAX AOT artifact given to the port raises, naming the missing
   ``model`` keywords; a plain ``.npz`` raises too;
 - ``cli.serve export --aot``, ``sample --aot`` and ``http --aot`` with no
-  model flags; ``--aot_data_devices`` and ``--data_devices`` raise naming
-  A9; the HTTP server over an AotSession answers as over an
+  model flags; an artifact exported over two data devices served by two
+  CPU replicas as one device serves it (API and CLI); the HTTP server over an AotSession answers as over an
   InferenceSession; ``bench_serve_load`` against it;
 - a read-only request array (as an HTTP body's) is copied, not aliased;
 - on a card (``cuda``-marked): the graphed session against the eager one,
@@ -248,12 +248,56 @@ def test_cli_export_aot_then_sample_and_http(run_dir, monkeypatch):
                         "--degrees", "2"])
 
 
-@pytest.mark.parametrize("argv", [
-    ["export", "--aot", "--aot_data_devices", "2", "--checkpoint", "x"],
-    ["sample", "--aot", "x", "--data_devices", "2"]])
-def test_cli_aot_over_a_mesh_raises(argv):
-    with pytest.raises(NotImplementedError, match="Queue A, A9\\)"):
-        cli_serve.main(argv + _FLAGS)
+@pytest.mark.parametrize("mode", list(CONFIGS))
+def test_aot_session_over_two_data_devices(artifacts, tmp_path, mode):
+    """An artifact exported over a 2-device mesh records it, and its
+    session (two CPU replicas, each chunk split in halves) answers as the
+    single-device InferenceSession of the same weights and seed."""
+    from lie_vae_tpu_torch.parallel import make_mesh
+    a = artifacts[mode]
+    art = tserve.export_aot(a["ckpt"], a["model"], str(tmp_path / "m.npz"),
+                            batch_size=4,
+                            mesh=make_mesh(2, devices=["cpu", "cpu"]))
+    aot = tserve.AotSession(art, seed=3, device="cpu")
+    assert aot.meta["data_devices"] == 2 and len(aot._aot) == 2
+    live = tserve.InferenceSession(a["model"], a["model"].state_dict(),
+                                   batch_size=4, seed=3, device="cpu")
+    x = _inputs(aot.model, 6, 1)
+    for _ in range(2):
+        got, want = aot.encode(x), live.encode(x)
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-6,
+                                       atol=1e-6, err_msg=k)
+    np.testing.assert_allclose(aot.decode(want["pose"]),
+                               live.decode(want["pose"]), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(aot.reconstruct(x), live.reconstruct(x),
+                               rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="multiple of the mesh's data size"):
+        tserve.export_aot(a["ckpt"], a["model"], str(tmp_path / "n.npz"),
+                          batch_size=5,
+                          mesh=make_mesh(2, devices=["cpu", "cpu"]))
+
+
+def test_cli_aot_over_a_mesh(run_dir):
+    """export --aot --aot_data_devices 2, then sample and http from it on two
+    CPU replicas; a --data_devices that disagrees with the artifact, or a
+    card count below it, raises with the counts."""
+    tmp, model = run_dir
+    art = cli_serve.main(["export", "--aot", "--aot_batch", "8",
+                          "--aot_data_devices", "2", "--checkpoint",
+                          "out/checkpoint.pt", "--out", "mesh.npz"] + _FLAGS)
+    out = cli_serve.main(["sample", "--aot", art, "-n", "5", "--seed", "3",
+                          "--out", "s.npz", "--device", "cpu",
+                          "--data_devices", "2"])
+    live = tserve.InferenceSession(model, model.state_dict(), batch_size=8,
+                                   device="cpu")
+    with np.load(out) as z:
+        np.testing.assert_allclose(z["images"], live.sample(5, seed=3),
+                                   rtol=1e-6, atol=1e-6)
+    with pytest.raises(SystemExit, match="exported for 2 device"):
+        cli_serve.main(["sample", "--aot", art, "--data_devices", "3",
+                        "--device", "cpu"])
 
 
 def _post(url, route, arrays):

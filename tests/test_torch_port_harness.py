@@ -379,19 +379,16 @@ def test_cli_runs_end_to_end(tmp_path, monkeypatch, capsys):
     assert (tmp_path / "ll.txt").read_text().startswith("None : ")
 
 
-@pytest.mark.parametrize("args,item", [
-    (["--mesh_data", "2"], "A9"), (["--mesh_model", "2"], "A9"),
-    (["serve", "export", "--aot_data_devices", "2", "--checkpoint",
-      "unused"], "A9"),
-    (["serve", "sample", "--data_devices", "2", "--checkpoint", "unused"],
-     "A9")])
-def test_cli_modes_not_ported_raise(args, item):
-    """cli.main, and cli.serve for arguments that start with 'serve'."""
-    with pytest.raises(NotImplementedError, match=f"Queue A, {item}\\)"):
-        if args[0] == "serve":
-            cli_serve.main(args[1:2] + _TINY + args[2:])
-        else:
-            cli_main.main(_TINY + args)
+@pytest.mark.parametrize("args,world", [
+    (["--mesh_data", "2"], 2), (["--mesh_model", "2"], 2),
+    (["--mesh_data", "2", "--mesh_model", "2"], 4),
+    (["--mesh_data", "3"], 3)])
+def test_cli_mesh_needs_its_world_size(args, world, monkeypatch):
+    """Without a launcher (or with another world size) the mesh flags raise
+    and name the world size they need."""
+    monkeypatch.setenv("WORLD_SIZE", "1" if world != 3 else "2")
+    with pytest.raises(SystemExit, match=f"needs a world size of {world} "):
+        cli_main.main(_TINY + args)
 
 
 def test_cli_runs_on_the_card_unless_asked(monkeypatch):

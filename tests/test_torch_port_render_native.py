@@ -94,3 +94,17 @@ def test_library_lands_under_build_native():
     assert os.path.exists(path)
     csrc = os.path.join(ROOT, "lie_vae_tpu_torch", "csrc")
     assert not [f for f in os.listdir(csrc) if f.endswith(".so")]
+
+
+def test_threads_of_one_process_build_the_library_at_once(tmp_path,
+                                                          monkeypatch):
+    """A fresh checkout's threaded loader: the first batches' threads all
+    build the library at once, each through a file of its own, and every
+    one of them gets it."""
+    from concurrent.futures import ThreadPoolExecutor
+    monkeypatch.setattr(_build, "HOST_BUILD_DIR", str(tmp_path / "native"))
+    with ThreadPoolExecutor(4) as pool:
+        paths = list(pool.map(lambda _: _build.build_host("render_native"),
+                              range(4)))
+    assert len(set(paths)) == 1 and os.path.exists(paths[0])
+    assert os.listdir(tmp_path / "native") == [os.path.basename(paths[0])]

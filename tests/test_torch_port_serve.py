@@ -123,7 +123,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for p in _PORT_SOURCES if not p.endswith("chip_smoke.py"))
     for m in ("lie_vae_tpu_torch.losses", "lie_vae_tpu_torch.losses."
               "equivariance", "lie_vae_tpu_torch.losses.continuity",
-              "lie_vae_tpu_torch.bench_serve_load", "lie_vae_tpu_torch.serve"):
+              "lie_vae_tpu_torch.bench_serve_load", "lie_vae_tpu_torch.serve",
+              "lie_vae_tpu_torch.parallel", "lie_vae_tpu_torch.parallel.mesh",
+              "lie_vae_tpu_torch.parallel.run_steps",
+              "lie_vae_tpu_torch.cli.analyze_toy",
+              "lie_vae_tpu_torch.cli.run_degree_sweep",
+              "lie_vae_tpu_torch.cli._results_table"):
         assert m in modules, m
     code = (f"import sys\nfor m in {modules!r}:\n    __import__(m)\n"
             "import chip_smoke\n"

@@ -18,14 +18,15 @@ artifacts) held against the JAX package's, on the CPU at a small size.
   served by the port, each answering as the session it came from;
 - ``cli.serve`` ``export`` (to .npz, from a reference state_dict, back to
   a reference state_dict), ``sample``, ``trajectory`` and ``bench`` with
-  ``--device cpu``; ``--data_devices`` and ``--aot_data_devices`` (a
-  mesh) raise naming ROADMAP.md's A9 (``--aot`` itself:
-  ``test_torch_port_aot.py``);
+  ``--device cpu``; ``--data_devices 2`` over two CPU replicas answering
+  as one device, and the device counts it cannot have raising (``--aot``
+  itself: ``test_torch_port_aot.py``);
 - each latent's ``sample`` (the prior the session's generator draws) and
   ``geodesic`` (SO(3)'s exp map, the Gaussian's line, the quaternions'
   slerp on the shorter arc and its constant case) against the JAX
   session's poses.
 """
+import argparse
 import http.client
 import io
 import json
@@ -399,14 +400,63 @@ def test_cli_export_sample_trajectory_bench(run_dir, capsys):
     assert "device_ms_per_batch" not in res["encode"]     # no card
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["export", "--aot", "--aot_data_devices", "2", "--checkpoint", "x"],
-     "A9"),
-    (["sample", "--data_devices", "2", "--checkpoint", "x"], "A9"),
-    (["http", "--aot", "x", "--data_devices", "2"], "A9")])
-def test_cli_serve_unported_flags_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=f"Queue A, {item}\\)"):
-        cli_serve.main(argv + _FLAGS)
+@pytest.mark.parametrize("command", ["sample", "trajectory", "encode"])
+def test_cli_serve_over_two_data_devices(run_dir, command):
+    """--data_devices 2 --device cpu: two CPU replicas, each chunk split in
+    halves, answer as one device does."""
+    tmp, model = run_dir
+    ckpt = str(tmp / "out" / "checkpoint.pt")
+    one = tserve.InferenceSession(model, model.state_dict(), batch_size=8,
+                                  device="cpu", seed=3)
+    if command == "encode":
+        from lie_vae_tpu_torch.parallel import make_mesh
+        two = cli_serve._session(argparse.Namespace(
+            aot=None, artifact=None, torch=None, checkpoint=ckpt,
+            batch_size=8, seed=3, data_devices=2), _FLAGS)
+        assert two.mesh.shape == make_mesh(2, devices=["cpu"] * 2).shape
+        x = _x(11, 5)
+        got, want = two.encode(x), one.encode(x)
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-6,
+                                       atol=1e-6, err_msg=k)
+        return
+    argv = [command, "--checkpoint", ckpt, "--seed", "3", "--batch_size",
+            "8", "--data_devices", "2", "--out", "o.npz"] + _FLAGS
+    out = cli_serve.main(argv + (["-n", "5"] if command == "sample"
+                                 else ["--steps", "4"]))
+    with np.load(out) as z:
+        if command == "sample":
+            np.testing.assert_allclose(z["images"], one.sample(5, seed=3),
+                                       rtol=1e-6, atol=1e-6)
+        else:
+            np.testing.assert_allclose(
+                z["frames"], one.geodesic(z["pose_a"], z["pose_b"], steps=4),
+                rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("argv", [
+    ["sample", "--data_devices", "2", "--checkpoint", "out/checkpoint.pt"],
+    ["export", "--aot_data_devices", "2", "--checkpoint",
+     "out/checkpoint.pt"],
+    ["sample", "--data_devices", "3", "--checkpoint", "out/checkpoint.pt",
+     "--batch_size", "8"]])
+def test_cli_serve_data_devices_it_cannot_have_raise(run_dir, monkeypatch,
+                                                     argv):
+    """Two cards asked of a machine with one: the counts named, no quiet
+    replay on fewer; --aot_data_devices without --aot; a batch the devices
+    do not divide."""
+    flags = list(_FLAGS)
+    if argv[1] == "--data_devices" and argv[2] == "2":
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        flags[1] = "cuda"
+        match = "2 data devices needs 2 cards, this machine has 1 card"
+    elif argv[0] == "export":
+        match = "an --aot flag"
+    else:
+        match = "multiple of the mesh's data size 3"
+    with pytest.raises((SystemExit, ValueError), match=match):
+        cli_serve.main(argv + flags)
 
 
 def test_cli_serve_runs_on_the_card_unless_asked(run_dir, monkeypatch):
