@@ -30,6 +30,11 @@ drawn for the whole chunk as one device draws it. An :func:`export_aot`
 artifact records its ``data_devices``, and :class:`AotSession` rebuilds
 over that many devices, one CUDA graph per surface and device.
 
+Under a ``torch.profiler`` session every surface call is a
+``session.request`` span of ``tracing``, with its stages as children
+(``session.normalize``, ``.chunk``, ``.copy_in``, ``.replay``,
+``.copy_out``, ``.gather``).
+
 Typical use::
 
     model = flagship_model()
@@ -40,13 +45,25 @@ Typical use::
 """
 import contextlib
 import copy
+import functools
 import json
 
 import numpy as np
 import torch
 
-from lie_vae_tpu_torch import compat, ops
+from lie_vae_tpu_torch import compat, ops, tracing
 from lie_vae_tpu_torch.precision import ieee_float32
+
+
+def _request(surface):
+    """A surface call is one request: a ``session.request`` span whose id
+    is the session's count of requests."""
+    @functools.wraps(surface)
+    def call(self, *args, **kwargs):
+        self._requests += 1
+        with tracing.span("session.request", self._requests):
+            return surface(self, *args, **kwargs)
+    return call
 
 
 def _data_devices(mesh, batch_size):
@@ -81,6 +98,7 @@ class InferenceSession:
         self._replicas = [(self.model, self.device)] + [
             (copy.deepcopy(self.model).to(d).eval(), d) for d in devices[1:]]
         self._gen = torch.Generator(device="cpu").manual_seed(seed)
+        self._requests = 0
 
     @classmethod
     def from_torch(cls, path, model, batch_size=64, seed=0, device="cuda",
@@ -113,10 +131,11 @@ class InferenceSession:
 
     @staticmethod
     def _normalize(x):
-        x = np.asarray(x)
-        if x.dtype == np.uint8:
-            x = x.astype(np.float32) / 255.0
-        return x.astype(np.float32, copy=False)
+        with tracing.span("session.normalize"):
+            x = np.asarray(x)
+            if x.dtype == np.uint8:
+                x = x.astype(np.float32) / 255.0
+            return x.astype(np.float32, copy=False)
 
     def _chunks(self, *arrays):
         """The row-aligned ``arrays`` in full ``batch_size`` chunks, the last
@@ -128,24 +147,30 @@ class InferenceSession:
             raise ValueError("empty request (0 rows)")
         b = self.batch_size
         for lo in range(0, n, b):
-            chunks = []
-            for a in arrays:
-                c = np.asarray(a[lo:lo + b])
-                if c.shape[0] < b:
-                    c = np.concatenate(
-                        [c, np.repeat(c[-1:], b - c.shape[0], axis=0)])
-                else:
-                    c = np.array(c)
-                chunks.append(torch.from_numpy(c))
+            with tracing.span("session.chunk"):
+                chunks = []
+                for a in arrays:
+                    c = np.asarray(a[lo:lo + b])
+                    if c.shape[0] < b:
+                        c = np.concatenate(
+                            [c, np.repeat(c[-1:], b - c.shape[0], axis=0)])
+                    else:
+                        c = np.array(c)
+                    chunks.append(torch.from_numpy(c))
             yield chunks
 
     @staticmethod
+    def _host(out):
+        """A chunk's outputs (a tensor or a tuple of them) on the CPU."""
+        return (tuple(o.cpu() for o in out) if isinstance(out, tuple)
+                else out.cpu())
+
+    @staticmethod
     def _gather(outs, n):
-        """Per-chunk outputs (a tensor or a tuple of them) -> numpy
+        """Per-chunk host outputs (a tensor or a tuple of them) -> numpy
         concatenated and cut back to N rows."""
-        outs = [tuple(o.cpu().numpy() for o in out)
-                if isinstance(out, tuple) else (out.cpu().numpy(),)
-                for out in outs]
+        outs = [tuple(o.numpy() for o in out) if isinstance(out, tuple)
+                else (out.numpy(),) for out in outs]
         res = tuple(np.concatenate(parts)[:n] for parts in zip(*outs))
         return res if len(res) > 1 else res[0]
 
@@ -158,10 +183,16 @@ class InferenceSession:
         with torch.inference_mode():
             for chunks in self._chunks(*arrays):
                 if len(self._replicas) == 1:
-                    outs.append(fn(*(c.to(self.device) for c in chunks)))
+                    with tracing.span("session.copy_in"):
+                        args = [c.to(self.device) for c in chunks]
+                    with tracing.span("session.replay", device=True):
+                        outs.append(fn(*args))
                 else:
                     outs.append(self._sharded(fn, chunks))
-        return self._gather(outs, arrays[0].shape[0])
+        with tracing.span("session.copy_out"):
+            outs = [self._host(out) for out in outs]
+        with tracing.span("session.gather"):
+            return self._gather(outs, arrays[0].shape[0])
 
     @contextlib.contextmanager
     def _on(self, model):
@@ -191,12 +222,12 @@ class InferenceSession:
             if draws:
                 props, u, v = draws
                 args += [props[..., sl], u[..., sl], v[:, sl]]
-            with self._on(model):
-                parts.append(fn(*(a.to(dev) for a in args)))
-        if isinstance(parts[0], tuple):
-            return tuple(torch.cat([p[j].cpu() for p in parts])
-                         for j in range(len(parts[0])))
-        return torch.cat([p.cpu() for p in parts])
+            with tracing.span("session.copy_in"):
+                args = [a.to(dev) for a in args]
+            with self._on(model), tracing.span("session.replay"):
+                parts.append(fn(*args))
+        with tracing.span("session.copy_out"):
+            return _cat([self._host(p) for p in parts])
 
     def _vmf_draws(self):
         """The vMF sampler's draws for one chunk, in the order the model
@@ -252,6 +283,7 @@ class InferenceSession:
 
     # ------------------------------------------------------------- surface
 
+    @_request
     @ieee_float32()
     def encode(self, images, eps=None):
         """Posterior of N inputs: ``{"pose": (N, ...) posterior means,
@@ -274,18 +306,24 @@ class InferenceSession:
                 self._encode, x, *(np.asarray(e, np.float32) for e in parts))
         return {"pose": pose, "sigma": sigma, "sample": sample}
 
+    @_request
     @ieee_float32()
     def decode(self, poses):
         """Decode N poses (the model's latent representation) to outputs
         (N, *out_shape)."""
+        return self._decode_poses(poses)
+
+    def _decode_poses(self, poses):
         return self._chunked(self._decode, np.asarray(poses, np.float32))
 
+    @_request
     @ieee_float32()
     def reconstruct(self, images):
         """Encode to the posterior mean, then decode: the autoencoder
         path."""
         return self._chunked(self._recon, self._normalize(images))
 
+    @_request
     @ieee_float32()
     def sample(self, n, seed=None):
         """Decode n poses from the prior (Haar-random rotations for
@@ -301,8 +339,9 @@ class InferenceSession:
             z = ops.random_quaternions(n, generator=gen, device="cpu")
         else:
             z = torch.randn((n, self.model.normal_dims), generator=gen)
-        return self.decode(z.numpy())
+        return self._decode_poses(z.numpy())
 
+    @_request
     @ieee_float32()
     def geodesic(self, pose_a, pose_b, steps=16, decode=True):
         """Poses at ``steps`` points t of [0, 1] from a to b: for ``so3``
@@ -328,7 +367,7 @@ class InferenceSession:
             zb = np.asarray(pose_b, np.float32)
             poses = (_slerp(za, zb, t) if self.model.is_vmf
                      else (1 - t) * za[None] + t * zb[None])
-        return self.decode(poses) if decode else poses
+        return self._decode_poses(poses) if decode else poses
 
     @ieee_float32()
     def warmup(self):
@@ -338,6 +377,15 @@ class InferenceSession:
         self.decode(self.encode(x)["pose"])
         self.reconstruct(x)
         return self
+
+
+def _cat(parts):
+    """The replicas' host outputs of one chunk (each a tensor or a tuple
+    of them) concatenated along the rows."""
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat([p[j] for p in parts])
+                     for j in range(len(parts[0])))
+    return torch.cat(parts)
 
 
 def _slerp(qa, qb, t):
@@ -528,9 +576,11 @@ class _AotReplica:
         """The surface's outputs over the static inputs: a replay of its
         graph on the card, the function itself on the CPU."""
         if self.device.type != "cuda":
-            return self.fns[name]()
+            with tracing.span("session.replay", device=True):
+                return self.fns[name]()
         graph, out = self.graphs[name]
-        with torch.cuda.device(self.device):
+        with torch.cuda.device(self.device), \
+                tracing.span("session.replay", device=True):
             graph.replay()
         return out
 
@@ -657,21 +707,19 @@ class AotSession(InferenceSession):
             for chunks in self._chunks(*arrays):
                 noise = (self._chunk_noise(chunks[1:]) if name == "encode"
                          else None)
-                for i, r in enumerate(self._aot):
-                    sl = slice(i * r.batch, (i + 1) * r.batch)
-                    (r.z if name == "decode" else r.x).copy_(chunks[0][sl])
-                    self._load_noise(r, noise, sl)
+                with tracing.span("session.copy_in"):
+                    for i, r in enumerate(self._aot):
+                        sl = slice(i * r.batch, (i + 1) * r.batch)
+                        (r.z if name == "decode" else r.x).copy_(
+                            chunks[0][sl])
+                        self._load_noise(r, noise, sl)
                 replayed = []
                 for r in self._aot:
                     replayed.append(r.run(name))
                     if r.device.type == "cuda":
                         self.replays[name] += 1
-                parts = [tuple(o.cpu() for o in out)
-                         if isinstance(out, tuple) else out.cpu()
-                         for out in replayed]
-                if isinstance(parts[0], tuple):
-                    outs.append(tuple(torch.cat([p[j] for p in parts])
-                                      for j in range(len(parts[0]))))
-                else:
-                    outs.append(torch.cat(parts))
-        return self._gather(outs, arrays[0].shape[0])
+                with tracing.span("session.copy_out"):
+                    outs.append([self._host(out) for out in replayed])
+            with tracing.span("session.gather"):
+                return self._gather([_cat(parts) for parts in outs],
+                                    arrays[0].shape[0])

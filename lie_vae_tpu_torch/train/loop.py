@@ -31,7 +31,13 @@ step computes on the global batch: each rank takes its contiguous rows of
 the batch and of the noise drawn for all of it, BatchNorm takes the global
 batch's statistics, the gradients are averaged over the ``data`` group
 before the clip, and the metrics are the global batch's.
+
+Under a ``torch.profiler`` session ``train()`` and :func:`train_step` open
+the spans of ``tracing`` (``train.batch``, ``train.inputs``, ``train.step``
+and the step's ``train.forward``, ``train.losses``, ``train.backward``,
+``train.optimizer``); outside one they cost nothing.
 """
+import contextlib
 import math
 import os
 import time
@@ -39,6 +45,7 @@ import time
 import numpy as np
 import torch
 
+from lie_vae_tpu_torch import tracing
 from lie_vae_tpu_torch.data.loader import BatchLoader
 from lie_vae_tpu_torch.distributions.vmf import NUM_PROPOSALS, draw_proposals
 from lie_vae_tpu_torch.losses import (encoder_continuity_loss,
@@ -91,60 +98,71 @@ def train_step(model, optimizer, x, beta, eps=None, generator=None,
         raise ValueError("Wrong control p")
     param = next(model.parameters())
     device = param.device
-    x = _normalize(torch.as_tensor(x, device=device), param.dtype)
-    model.train()
-    optimizer.zero_grad()
-    x_recon, stats = model(x, n=elbo_samples, eps=eps, generator=generator)
-    mean_recon = torch.mean(model.recon_loss(x_recon, x))
-    if beta != 0.0:
-        kls = model.kl(stats)
-        kl_sum = sum(kls)
-        if control is None:
-            loss = mean_recon + beta * torch.mean(kl_sum)
-        elif control_p == 1:
-            loss = mean_recon + control * torch.mean(torch.abs(beta - kl_sum))
+    with tracing.span("train.forward", device=True):
+        x = _normalize(torch.as_tensor(x, device=device), param.dtype)
+        model.train()
+        optimizer.zero_grad()
+        x_recon, stats = model(x, n=elbo_samples, eps=eps,
+                               generator=generator)
+        mean_recon = torch.mean(model.recon_loss(x_recon, x))
+        if beta != 0.0:
+            kls = model.kl(stats)
+            kl_sum = sum(kls)
+            if control is None:
+                loss = mean_recon + beta * torch.mean(kl_sum)
+            elif control_p == 1:
+                loss = mean_recon + control * torch.mean(
+                    torch.abs(beta - kl_sum))
+            else:
+                loss = mean_recon + control * torch.mean(
+                    (beta - kl_sum) ** 2)
+            mean_kl = torch.mean(kl_sum).detach()
+            kls_mean = [torch.mean(k).detach() for k in kls]
         else:
-            loss = mean_recon + control * torch.mean((beta - kl_sum) ** 2)
-        mean_kl = torch.mean(kl_sum).detach()
-        kls_mean = [torch.mean(k).detach() for k in kls]
-    else:
-        loss = mean_recon
-        mean_kl = torch.zeros((), device=device)
-        kls_mean = [mean_kl for _ in stats]
+            loss = mean_recon
+            mean_kl = torch.zeros((), device=device)
+            kls_mean = [mean_kl for _ in stats]
     metrics = {"recon": mean_recon.detach(), "kl": mean_kl, "kls": kls_mean}
     encoding = stats[0].z[0]
-    if equivariance_lamb is not None:
-        b = x.shape[0]
-        draw = generator.device if generator is not None else device
-        if theta is None:
-            theta = torch.rand((b,), generator=generator, dtype=x.dtype,
-                               device=draw) * (2.0 * math.pi)
-        if eq_eps is None and model.noise_dims is not None \
-                and not model.is_vmf:
-            eq_eps = torch.randn((1, b, model.noise_dims),
-                                 generator=generator, dtype=x.dtype,
-                                 device=draw)
+    regularized = (equivariance_lamb is not None
+                   or encoder_continuity_lamb is not None)
+    with (tracing.span("train.losses", device=True) if regularized
+          else contextlib.nullcontext()):
+        if equivariance_lamb is not None:
+            b = x.shape[0]
+            draw = generator.device if generator is not None else device
+            if theta is None:
+                theta = torch.rand((b,), generator=generator, dtype=x.dtype,
+                                   device=draw) * (2.0 * math.pi)
+            if eq_eps is None and model.noise_dims is not None \
+                    and not model.is_vmf:
+                eq_eps = torch.randn((1, b, model.noise_dims),
+                                     generator=generator, dtype=x.dtype,
+                                     device=draw)
 
-        def encode_fn(img):
-            # train mode, after the main pass: BatchNorm's running
-            # statistics advance a second time, as the reference's do
-            return model.encode(img, n=1, eps=eq_eps,
-                                generator=generator)[0].z[0]
+            def encode_fn(img):
+                # train mode, after the main pass: BatchNorm's running
+                # statistics advance a second time, as the reference's do
+                return model.encode(img, n=1, eps=eq_eps,
+                                    generator=generator)[0].z[0]
 
-        if not isinstance(theta, torch.Tensor):
-            theta = torch.tensor(np.asarray(theta))
-        eq, _ = equivariance_loss(encode_fn, x, encoding, theta.to(device),
-                                  rotate_impl=equivariance_rotate)
-        loss = loss + equivariance_lamb * eq
-        metrics["equivariance"] = eq.detach()
-    if encoder_continuity_lamb is not None:
-        cont, _ = encoder_continuity_loss(encoding)
-        loss = loss + encoder_continuity_lamb * cont
-        metrics["encoder_continuity"] = cont.detach()
-    loss.backward()
-    if mesh is not None:
-        mesh.average_gradients(model.parameters())
-    optimizer.step()
+            if not isinstance(theta, torch.Tensor):
+                theta = torch.tensor(np.asarray(theta))
+            eq, _ = equivariance_loss(encode_fn, x, encoding,
+                                      theta.to(device),
+                                      rotate_impl=equivariance_rotate)
+            loss = loss + equivariance_lamb * eq
+            metrics["equivariance"] = eq.detach()
+        if encoder_continuity_lamb is not None:
+            cont, _ = encoder_continuity_loss(encoding)
+            loss = loss + encoder_continuity_lamb * cont
+            metrics["encoder_continuity"] = cont.detach()
+    with tracing.span("train.backward", device=True):
+        loss.backward()
+        if mesh is not None:
+            mesh.average_gradients(model.parameters())
+    with tracing.span("train.optimizer", device=True):
+        optimizer.step()
     metrics["loss"] = loss.detach()
     if monitor_sigma:
         metrics["sigma_max"] = torch.max(stats[0].inner.sigma).detach()
@@ -534,21 +552,26 @@ class UnsupervisedExperiment:
         steps_since_report = 0
         start = time.time()
         group = []
-        batches = self._batches(self.train_loader, self._device_train)
-        for it, x in enumerate(batches):
-            if it == n:
+        batches = iter(self._batches(self.train_loader, self._device_train))
+        for it in range(n):
+            global_it = epoch * num_batches + it + 1
+            with tracing.span("train.batch", global_it):
+                x = next(batches, None)
+            if x is None:
                 break
-            group.append((epoch * num_batches + it + 1, x))
+            group.append((global_it, x))
             if len(group) < K and it + 1 < n:
                 continue
             for global_it, xb in group:
                 beta = self.beta_schedule(global_it)
-                noise, reg = self._step_inputs(global_it, xb.shape[0])
-                metrics = train_step(
-                    self.model, self.optimizer, xb, beta, **noise, **reg,
-                    elbo_samples=self.elbo_samples, control=self.control,
-                    control_p=self.control_p,
-                    monitor_sigma=self._monitor_sigma, mesh=self.mesh)
+                with tracing.span("train.inputs", global_it):
+                    noise, reg = self._step_inputs(global_it, xb.shape[0])
+                with tracing.span("train.step", global_it):
+                    metrics = train_step(
+                        self.model, self.optimizer, xb, beta, **noise,
+                        **reg, elbo_samples=self.elbo_samples,
+                        control=self.control, control_p=self.control_p,
+                        monitor_sigma=self._monitor_sigma, mesh=self.mesh)
                 if self.report_freq is not None:
                     self._window.append(metrics)
                 self.last_metrics = metrics
@@ -634,10 +657,13 @@ class UnsupervisedExperiment:
         beta = float(self.beta_schedule(1))
 
         def step():
-            noise, reg = self._step_inputs(1, x.shape[0])
-            train_step(self.model, self.optimizer, x, beta, **noise, **reg,
-                       elbo_samples=self.elbo_samples, control=self.control,
-                       control_p=self.control_p, mesh=self.mesh)
+            with tracing.span("train.inputs", 1):
+                noise, reg = self._step_inputs(1, x.shape[0])
+            with tracing.span("train.step", 1):
+                train_step(self.model, self.optimizer, x, beta, **noise,
+                           **reg, elbo_samples=self.elbo_samples,
+                           control=self.control, control_p=self.control_p,
+                           mesh=self.mesh)
 
         step()
         activities = [torch.profiler.ProfilerActivity.CPU]
