@@ -139,7 +139,9 @@ Phases, each timed:
    count: the counts set to 0 just before it and read just after), captured
    with cuDNN's deterministic algorithms and held against an in-process
    ``InferenceSession`` of the same weights and seed (requests of 64 and
-   of 100 rows: decode bit for bit, encode and reconstruct within 1e-6),
+   of 100 rows: decode bit for bit, encode and reconstruct within 1e-6;
+   the uint8 request's reconstruct bit for bit its float32 twin's, scaled
+   by numpy, and every byte scaled on the card numpy's x / 255),
    the kernel named in a torch.profiler trace of one decode replay (a
    trace with under half the device events of the same call ungraphed is
    taken again, at most 3 in all; one with them and no kernel fails), and
@@ -1060,8 +1062,8 @@ def aot_phase(impl, counters, counts, images, poses, timed=True):
     summed."""
     from lie_vae_tpu_torch.models import flagship_model
     from lie_vae_tpu_torch.profile_serve import profile_request
-    from lie_vae_tpu_torch.serve import (InferenceSession,
-                                         export_aot_from_torch)
+    from lie_vae_tpu_torch.serve import (BYTE_SCALE, InferenceSession,
+                                         export_aot_from_torch, scale_uint8)
     out_dir = os.path.join(ROOT, "build", "smoke_aot")
     os.makedirs(out_dir, exist_ok=True)
     art = export_aot_from_torch(
@@ -1095,8 +1097,21 @@ def aot_phase(impl, counters, counts, images, poses, timed=True):
                     <= 1e-6):
                 raise AssertionError(f"{what}: the graphed session against "
                                      f"the in-process one: {worst}")
+            # uint8 is scaled on the card, as numpy scaled it on the host
+            if not np.array_equal(
+                    gr, aot.reconstruct(x.astype(np.float32) / 255.0)):
+                raise AssertionError(f"{what}: the uint8 request's answer "
+                                     "differs from its float32 twin's")
             check_images(got, (len(z), 64, 64, 3), f"{what} decode")
 
+        scaled = scale_uint8(
+            torch.arange(256, device="cuda").to(torch.uint8),
+            torch.from_numpy(BYTE_SCALE).cuda(), torch.empty(256,
+                                                             device="cuda"))
+        if not np.array_equal(scaled.cpu().numpy(), np.arange(
+                256, dtype=np.uint8).astype(np.float32) / 255.0):
+            raise AssertionError("the bytes scaled on the card differ from "
+                                 "numpy's x / 255")
         ragged = np.concatenate([images, images[:36]])
         poses100 = np.concatenate([poses, poses[:36]])
         held(images, poses, "a request of 64")

@@ -10,13 +10,23 @@ answers are numpy arrays of any leading size N: NHWC images (or toy
 spectra, the model's ``out_shape``) and poses in the model's latent
 representation: (N, 3, 3) rotations for ``so3``, (N, normal_dims) vectors
 for ``normal``, (N, 4) unit vectors for ``vmf`` and unit quaternions for
-``vmfq``. Work runs in chunks of ``batch_size`` rows (the last chunk padded
-by repeating its last row, the padding cut off again) under
-``torch.inference_mode()`` and in IEEE float32
+``vmfq``. uint8 images are scaled to x / 255. Work runs in chunks of
+``batch_size`` rows (the last chunk padded by repeating its last row, the
+padding cut off again) under ``torch.inference_mode()`` and in IEEE float32
 (``precision.ieee_float32``: no TF32), with the model in ``eval()`` so
 BatchNorm uses its running statistics. Noise and prior poses are drawn from
 a CPU ``torch.Generator`` seeded at construction, so a session on the GPU
 and one on the CPU with the same seed draw the same numbers.
+
+A chunk moves once each way through buffers the session keeps (pinned
+when it serves a card): its rows are copied from the request into a
+staging buffer of the request's dtype, which goes to the device in one
+non_blocking copy; uint8 crosses as uint8 and is scaled on the device
+(:func:`scale_uint8`, bit for bit numpy's ``x.astype(np.float32) /
+255.0``); the outputs come back into output buffers, whose rows are
+copied into the answer, fresh arrays of N rows. ``staged`` counts the
+chunks so served by the request's dtype. A session serves one request at
+a time (``serve_http`` serialises them behind a lock).
 
 :class:`AotSession` serves an :func:`export_aot` artifact with no model
 flags: on the card its fixed-batch encode, decode and reconstruct each
@@ -31,8 +41,8 @@ artifact records its ``data_devices``, and :class:`AotSession` rebuilds
 over that many devices, one CUDA graph per surface and device.
 
 Under a ``torch.profiler`` session every surface call is a
-``session.request`` span of ``tracing``, with its stages as children
-(``session.normalize``, ``.chunk``, ``.copy_in``, ``.replay``,
+``session.request`` span of ``tracing``, with each chunk's stages as
+children (``session.chunk``, ``.copy_in``, ``.normalize``, ``.replay``,
 ``.copy_out``, ``.gather``).
 
 Typical use::
@@ -53,6 +63,21 @@ import torch
 
 from lie_vae_tpu_torch import compat, ops, tracing
 from lie_vae_tpu_torch.precision import ieee_float32
+
+
+# x / 255 for each byte x, divided as numpy divides (``x.astype(np.float32)
+# / 255.0``): a uint8 request is scaled on the device by looking its bytes
+# up here, since CUDA's division by a host scalar multiplies by the
+# reciprocal, which rounds 126 of the 256 quotients differently
+BYTE_SCALE = np.arange(256, dtype=np.uint8).astype(np.float32) / 255.0
+
+
+def scale_uint8(x, table, out):
+    """The uint8 tensor ``x`` scaled into ``out``, of its shape on its
+    device: ``table[x]``, with ``table`` :data:`BYTE_SCALE` there in
+    ``out``'s dtype, so x / 255 bit for bit as numpy divides in float32."""
+    torch.index_select(table, 0, x.reshape(-1).int(), out=out.view(-1))
+    return out
 
 
 def _request(surface):
@@ -99,6 +124,18 @@ class InferenceSession:
             (copy.deepcopy(self.model).to(d).eval(), d) for d in devices[1:]]
         self._gen = torch.Generator(device="cpu").manual_seed(seed)
         self._requests = 0
+        self._serve_over(devices)
+        self._held = {}
+        self._copying = []
+        self.staged = {"uint8": 0, "float32": 0}
+
+    def _serve_over(self, devices):
+        """Each chunk is split into one contiguous shard a device."""
+        per = self.batch_size // len(devices)
+        self._shards = [slice(i * per, (i + 1) * per)
+                        for i in range(len(devices))]
+        self._cards = list(dict.fromkeys(d for d in devices
+                                         if d.type == "cuda"))
 
     @classmethod
     def from_torch(cls, path, model, batch_size=64, seed=0, device="cuda",
@@ -129,70 +166,142 @@ class InferenceSession:
 
     # ------------------------------------------------------------ plumbing
 
-    @staticmethod
-    def _normalize(x):
-        with tracing.span("session.normalize"):
-            x = np.asarray(x)
-            if x.dtype == np.uint8:
-                x = x.astype(np.float32) / 255.0
-            return x.astype(np.float32, copy=False)
+    def _keep(self, key, shape, dtype, device=None):
+        """The session's own buffer ``key`` (made on first use): on the
+        host when ``device`` is None, pinned when the session serves a card,
+        otherwise on ``device``."""
+        key = (key, tuple(shape), dtype, device)
+        buf = self._held.get(key)
+        if buf is None:
+            buf = (torch.empty(shape, dtype=dtype, device=device)
+                   if device is not None else
+                   torch.empty(shape, dtype=dtype,
+                               pin_memory=self.device.type == "cuda"))
+            self._held[key] = buf
+        return buf
 
-    def _chunks(self, *arrays):
-        """The row-aligned ``arrays`` in full ``batch_size`` chunks, the last
-        padded by repeating its last row: lists of CPU tensors, each a copy
-        (a request's array may be read-only, as an HTTP body's is), and the
-        request's N."""
-        n = arrays[0].shape[0]
-        if n == 0:
-            raise ValueError("empty request (0 rows)")
-        b = self.batch_size
-        for lo in range(0, n, b):
-            with tracing.span("session.chunk"):
-                chunks = []
-                for a in arrays:
-                    c = np.asarray(a[lo:lo + b])
-                    if c.shape[0] < b:
-                        c = np.concatenate(
-                            [c, np.repeat(c[-1:], b - c.shape[0], axis=0)])
-                    else:
-                        c = np.array(c)
-                    chunks.append(torch.from_numpy(c))
-            yield chunks
+    def _table(self, device, dtype=torch.float32):
+        """:data:`BYTE_SCALE` on ``device``, as ``dtype``."""
+        key = ("byte_scale", device, dtype)
+        if key not in self._held:
+            self._held[key] = torch.from_numpy(BYTE_SCALE).to(device, dtype)
+        return self._held[key]
 
-    @staticmethod
-    def _host(out):
-        """A chunk's outputs (a tensor or a tuple of them) on the CPU."""
-        return (tuple(o.cpu() for o in out) if isinstance(out, tuple)
-                else out.cpu())
+    def _stage(self, arrays, lo):
+        """Rows ``lo:lo + batch_size`` of each row-aligned request array
+        copied into the session's staging buffer of its dtype (uint8 as it
+        came, anything else as float32) at the batch shape, the short last
+        chunk padded by repeating its last row. A buffer is written only
+        once the copies out of it have finished."""
+        with tracing.span("session.chunk"):
+            for event in self._copying:
+                event.synchronize()
+            staged = []
+            for j, a in enumerate(arrays):
+                rows = a[lo:lo + self.batch_size]
+                dtype = torch.uint8 if a.dtype == np.uint8 else torch.float32
+                buf = self._keep(("in", j), (self.batch_size,) + a.shape[1:],
+                                 dtype)
+                host = buf.numpy()
+                host[:len(rows)] = rows
+                host[len(rows):] = rows[-1]
+                staged.append(buf)
+            self.staged[str(staged[0].dtype).removeprefix("torch.")] += 1
+        return staged
 
-    @staticmethod
-    def _gather(outs, n):
-        """Per-chunk host outputs (a tensor or a tuple of them) -> numpy
-        concatenated and cut back to N rows."""
-        outs = [tuple(o.numpy() for o in out) if isinstance(out, tuple)
-                else (out.numpy(),) for out in outs]
-        res = tuple(np.concatenate(parts)[:n] for parts in zip(*outs))
-        return res if len(res) > 1 else res[0]
+    def _scaled(self, key, x):
+        """A uint8 input on the device scaled into float32 there
+        (:func:`scale_uint8`, into the buffer ``key``); any other as it
+        is."""
+        if x.dtype != torch.uint8:
+            return x
+        return scale_uint8(x, self._table(x.device),
+                           self._keep(key, x.shape, torch.float32, x.device))
+
+    def _copy_in(self, fn, staged):
+        """Each replica's shard of the staged inputs in its device buffers
+        (one non_blocking copy each), uint8 scaled there: the arguments of
+        ``fn``, one list a replica. Over a mesh a vMF encode that draws its
+        noise draws it here for the whole chunk, as the single-device model
+        draws it, and hands each shard its rows."""
+        draws = ()
+        if len(self._replicas) > 1 and fn == self._encode \
+                and len(staged) == 1 and self.model.is_vmf \
+                and self.model.noise_dims is not None:
+            draws = self._vmf_draws()
+        args = []
+        for i, (sl, (_, dev)) in enumerate(zip(self._shards, self._replicas)):
+            with tracing.span("session.copy_in"):
+                xs = []
+                for j, s in enumerate(staged):
+                    x = self._keep(("dev", i, j), s[sl].shape, s.dtype, dev)
+                    xs.append(x.copy_(s[sl], non_blocking=True))
+                if draws:
+                    props, u, v = draws
+                    xs += [a.to(dev) for a in (props[..., sl], u[..., sl],
+                                               v[:, sl])]
+            with tracing.span("session.normalize"):
+                args.append([self._scaled(("scaled", i, j), x)
+                             for j, x in enumerate(xs)])
+        return args
+
+    def _replay(self, fn, args):
+        """``fn`` on each replica's arguments: its outputs, one a replica."""
+        outs = []
+        for (model, _), a in zip(self._replicas, args):
+            with self._on(model), tracing.span(
+                    "session.replay", device=len(self._replicas) == 1):
+                outs.append(fn(*a))
+        return outs
+
+    def _copy_out(self, outs):
+        """The replicas' outputs (each a tensor or a tuple of them) copied,
+        non_blocking, into their rows of the session's output buffers at the
+        batch shape, then one wait for the devices: the buffers as numpy."""
+        host = []
+        for sl, out in zip(self._shards, outs):
+            for k, o in enumerate(out if isinstance(out, tuple) else (out,)):
+                if k == len(host):
+                    host.append(self._keep(
+                        ("out", k), (self.batch_size,) + o.shape[1:],
+                        o.dtype))
+                host[k][sl].copy_(o, non_blocking=True)
+        for dev in self._cards:
+            torch.cuda.current_stream(dev).synchronize()
+        return [h.numpy() for h in host]
 
     def _chunked(self, fn, *arrays):
         """Run ``fn`` on full ``batch_size`` chunks of the row-aligned
-        ``arrays`` (moved to the device) and return its outputs, a tensor
-        or a tuple of them, as numpy cut back to N rows. Over a mesh each
-        chunk is split over the replicas (:meth:`_sharded`)."""
-        outs = []
+        ``arrays`` and return its outputs, an array or a tuple of them, of
+        the request's N rows. Each chunk goes through the session's buffers:
+        its rows staged on the host (:meth:`_stage`), copied to the device
+        and scaled there if uint8 (:meth:`_copy_in`), ``fn`` run over each
+        replica's shard (:meth:`_replay`), the outputs copied back
+        (:meth:`_copy_out`) and their rows written into the answer, fresh
+        arrays of N rows made at the first chunk."""
+        n = arrays[0].shape[0]
+        if n == 0:
+            raise ValueError("empty request (0 rows)")
+        answer = None
         with torch.inference_mode():
-            for chunks in self._chunks(*arrays):
-                if len(self._replicas) == 1:
-                    with tracing.span("session.copy_in"):
-                        args = [c.to(self.device) for c in chunks]
-                    with tracing.span("session.replay", device=True):
-                        outs.append(fn(*args))
-                else:
-                    outs.append(self._sharded(fn, chunks))
-        with tracing.span("session.copy_out"):
-            outs = [self._host(out) for out in outs]
-        with tracing.span("session.gather"):
-            return self._gather(outs, arrays[0].shape[0])
+            for lo in range(0, n, self.batch_size):
+                staged = self._stage(arrays, lo)
+                args = self._copy_in(fn, staged)
+                self._copying = []
+                for dev in self._cards:
+                    self._copying.append(torch.cuda.Event())
+                    self._copying[-1].record(torch.cuda.current_stream(dev))
+                outs = self._replay(fn, args)
+                with tracing.span("session.copy_out"):
+                    host = self._copy_out(outs)
+                with tracing.span("session.gather"):
+                    if answer is None:
+                        answer = tuple(np.empty((n,) + h.shape[1:], h.dtype)
+                                       for h in host)
+                    rows = min(self.batch_size, n - lo)
+                    for a, h in zip(answer, host):
+                        a[lo:lo + rows] = h[:rows]
+        return answer if len(answer) > 1 else answer[0]
 
     @contextlib.contextmanager
     def _on(self, model):
@@ -203,31 +312,6 @@ class InferenceSession:
             yield
         finally:
             self.model = own
-
-    def _sharded(self, fn, chunks):
-        """One chunk over the mesh: contiguous shards, one per replica on
-        its device, the outputs concatenated on the CPU. A vMF encode that
-        draws its noise draws it here for the whole chunk, as the
-        single-device model draws it, and hands each shard its rows."""
-        n = len(self._replicas)
-        per = self.batch_size // n
-        draws = ()
-        if fn == self._encode and len(chunks) == 1 and self.model.is_vmf \
-                and self.model.noise_dims is not None:
-            draws = self._vmf_draws()
-        parts = []
-        for i, (model, dev) in enumerate(self._replicas):
-            sl = slice(i * per, (i + 1) * per)
-            args = [c[sl] for c in chunks]
-            if draws:
-                props, u, v = draws
-                args += [props[..., sl], u[..., sl], v[:, sl]]
-            with tracing.span("session.copy_in"):
-                args = [a.to(dev) for a in args]
-            with self._on(model), tracing.span("session.replay"):
-                parts.append(fn(*args))
-        with tracing.span("session.copy_out"):
-            return _cat([self._host(p) for p in parts])
 
     def _vmf_draws(self):
         """The vMF sampler's draws for one chunk, in the order the model
@@ -293,7 +377,7 @@ class InferenceSession:
         draw (N,), tangent normal (N, 4)); otherwise the session's generator
         draws it (a deterministic model draws none and samples its
         mean)."""
-        x = self._normalize(images)
+        x = np.asarray(images)
         dims = self.model.noise_dims
         if dims is None or (eps is None and self.model.is_vmf):
             pose, sigma, sample = self._chunked(self._encode, x)
@@ -321,7 +405,7 @@ class InferenceSession:
     def reconstruct(self, images):
         """Encode to the posterior mean, then decode: the autoencoder
         path."""
-        return self._chunked(self._recon, self._normalize(images))
+        return self._chunked(self._recon, np.asarray(images))
 
     @_request
     @ieee_float32()
@@ -377,15 +461,6 @@ class InferenceSession:
         self.decode(self.encode(x)["pose"])
         self.reconstruct(x)
         return self
-
-
-def _cat(parts):
-    """The replicas' host outputs of one chunk (each a tensor or a tuple
-    of them) concatenated along the rows."""
-    if isinstance(parts[0], tuple):
-        return tuple(torch.cat([p[j] for p in parts])
-                     for j in range(len(parts[0])))
-    return torch.cat(parts)
 
 
 def _slerp(qa, qb, t):
@@ -596,17 +671,18 @@ class AotSession(InferenceSession):
     captured once at construction (``torch.cuda.graph``, each on its own
     memory pool, in IEEE float32, after two eager runs that build the
     kernels and pick cuDNN's algorithms) and replayed for every chunk: a
-    chunk is copied into the graph's static input buffer, the graph
-    replays, and its static outputs are copied out. A capture that fails
-    raises. Noise is drawn outside the graph, from the session's CPU
-    generator exactly as :class:`InferenceSession` draws it, and copied into
-    a static buffer: for vMF the sampler's proposals and uniforms, the pick
-    against kappa staying inside the graph (a given accepted draw enters as
-    the first proposal with uniform 0, which accepts it). The kernels count
-    a launch at capture and none at a replay; ``replays`` counts each
-    surface's replays (one per device and chunk). On the CPU the same
-    fixed-batch functions run eagerly over the same buffers. ``close()``
-    frees the graphs.
+    chunk is copied into the graph's static input buffer (a uint8 chunk
+    into a buffer of its own, scaled from there into the static input),
+    the graph replays, and its static outputs are copied out. A capture
+    that fails raises. Noise is drawn outside the graph, from the session's
+    CPU generator exactly as :class:`InferenceSession` draws it, and copied
+    into a static buffer: for vMF the sampler's proposals and uniforms, the
+    pick against kappa staying inside the graph (a given accepted draw
+    enters as the first proposal with uniform 0, which accepts it). The
+    kernels count a launch at capture and none at a replay; ``replays``
+    counts each surface's replays (one per device and chunk). On the CPU
+    the same fixed-batch functions run eagerly over the same buffers.
+    ``close()`` frees the graphs.
 
     An artifact exported over ``data_devices`` devices is served over as
     many: ``devices`` (default :func:`serving_devices`, which raises on a
@@ -656,6 +732,7 @@ class AotSession(InferenceSession):
         self.replays = dict.fromkeys(_SURFACES, 0)
         self._aot = [_AotReplica(m, batch // n, d)
                      for m, d in zip(models, devices)]
+        self._serve_over(devices)
         self._surface = {self._encode: "encode", self._decode: "decode",
                          self._recon: "reconstruct"}
 
@@ -695,31 +772,36 @@ class AotSession(InferenceSession):
         for dst, src in zip(r.noise, (props[..., sl], u[..., sl], v[:, sl])):
             dst.copy_(src)
 
-    def _chunked(self, fn, *arrays):
-        """Each chunk split over the replicas (one, on a single device):
-        every shard copied into its replica's static input of ``fn``'s
-        surface, then every replica's surface replayed, then the outputs
-        (each replica's own static buffers) copied out and concatenated,
-        so that the replicas' devices run at the same time."""
+    def _copy_in(self, fn, staged):
+        """Each replica's shard of the staged chunk copied (non_blocking)
+        into its static input of ``fn``'s surface, a uint8 shard into a
+        device buffer of its own and scaled from there into the static
+        input, and the chunk's noise into the static noise buffers: the
+        surface's name."""
         name = self._surface[fn]
+        noise = self._chunk_noise(staged[1:]) if name == "encode" else None
+        for i, (sl, r) in enumerate(zip(self._shards, self._aot)):
+            static = r.z if name == "decode" else r.x
+            with tracing.span("session.copy_in"):
+                x = staged[0][sl]
+                if x.dtype == torch.uint8:
+                    x = self._keep(("dev", i, 0), x.shape, x.dtype,
+                                   r.device).copy_(x, non_blocking=True)
+                else:
+                    static.copy_(x, non_blocking=True)
+                self._load_noise(r, noise, sl)
+            with tracing.span("session.normalize"):
+                if x.dtype == torch.uint8:
+                    scale_uint8(x, self._table(r.device, static.dtype),
+                                static)
+        return name
+
+    def _replay(self, fn, name):
+        """Every replica's surface ``name`` replayed, so that the replicas'
+        devices run at the same time: their static outputs."""
         outs = []
-        with torch.inference_mode():
-            for chunks in self._chunks(*arrays):
-                noise = (self._chunk_noise(chunks[1:]) if name == "encode"
-                         else None)
-                with tracing.span("session.copy_in"):
-                    for i, r in enumerate(self._aot):
-                        sl = slice(i * r.batch, (i + 1) * r.batch)
-                        (r.z if name == "decode" else r.x).copy_(
-                            chunks[0][sl])
-                        self._load_noise(r, noise, sl)
-                replayed = []
-                for r in self._aot:
-                    replayed.append(r.run(name))
-                    if r.device.type == "cuda":
-                        self.replays[name] += 1
-                with tracing.span("session.copy_out"):
-                    outs.append([self._host(out) for out in replayed])
-            with tracing.span("session.gather"):
-                return self._gather([_cat(parts) for parts in outs],
-                                    arrays[0].shape[0])
+        for r in self._aot:
+            outs.append(r.run(name))
+            if r.device.type == "cuda":
+                self.replays[name] += 1
+        return outs

@@ -9,9 +9,10 @@ on the CPU at a small size.
   from a reference state_dict;
 - ``AotSession(path, device="cpu")`` rebuilds the model from the artifact
   alone and answers as ``InferenceSession`` on the same weights and seed,
-  bit for bit (SO(3), Gaussian and vMF latents: the vMF encode draws the
-  sampler's proposals from the session's generator and picks against
-  kappa, a given accepted draw as the first proposal); against the JAX
+  bit for bit, to float32 and to uint8 requests (SO(3), Gaussian and vMF
+  latents: the vMF encode draws the sampler's proposals from the session's
+  generator and picks against kappa, a given accepted draw as the first
+  proposal); against the JAX
   package's ``AotSession`` over its own ``export_aot`` artifact of the same
   weights (a conv + BatchNorm model, exported from an orbax checkpoint as
   ``tests/test_serve.py`` does): decode, encode with the JAX session's noise
@@ -69,9 +70,12 @@ def _tree(flat, coll):
          if k.startswith(coll + "/")}, sep="/")
 
 
-def _inputs(model, n, seed):
-    return np.random.default_rng(seed).random(
-        (n,) + tuple(model.out_shape)).astype(np.float32)
+def _inputs(model, n, seed, dtype="float32"):
+    rng = np.random.default_rng(seed)
+    shape = (n,) + tuple(model.out_shape)
+    if dtype == "uint8":
+        return rng.integers(0, 256, shape, dtype=np.uint8)
+    return rng.random(shape).astype(np.float32)
 
 
 @pytest.fixture(scope="module")
@@ -124,17 +128,20 @@ def test_export_aot_from_a_reference_state_dict(artifacts, tmp_path):
         sess.decode(z), tserve.AotSession(a["art"], device="cpu").decode(z))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
 @pytest.mark.parametrize("mode", list(CONFIGS))
-def test_aot_session_answers_as_the_inference_session(artifacts, mode):
+def test_aot_session_answers_as_the_inference_session(artifacts, mode,
+                                                      dtype):
     """No model flags: the model comes from the artifact, and every surface
-    answers as an InferenceSession of the same weights and seed."""
+    answers as an InferenceSession of the same weights and seed, for
+    float32 requests and uint8 ones (scaled on the device)."""
     a = artifacts[mode]
     aot = tserve.AotSession(a["art"], seed=3, device="cpu")
     live = tserve.InferenceSession(a["model"], a["model"].state_dict(),
                                    batch_size=4, seed=3, device="cpu")
     assert aot.model.config == a["model"].config
     assert aot.batch_size == 4
-    x = _inputs(aot.model, 6, 1)              # a full and a padded chunk
+    x = _inputs(aot.model, 6, 1, dtype)       # a full and a padded chunk
     for _ in range(2):                        # the generators advance alike
         got, want = aot.encode(x), live.encode(x)
         for k in want:

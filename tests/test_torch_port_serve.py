@@ -3,6 +3,15 @@
 - small width: both sessions from the same JAX weights, on the same
   requests, one of them ragged (not a multiple of the batch); tolerance
   1e-4 (float32, convolutions summed in another order);
+- the staged path (rows through the session's buffers, uint8 scaled on the
+  device by ``serve.scale_uint8``, bit for bit numpy's division over all
+  256 bytes, on the CPU and, ``cuda``-marked, on a card) answers bit for
+  bit as the host path it replaced (numpy scaling, padded chunks, outputs
+  concatenated), for ``InferenceSession`` and ``AotSession``, on one device
+  and over two CPU replicas, uint8 and float32 requests of N below, equal
+  to and not a multiple of the batch, read-only; the answer is a fresh
+  array a later request leaves intact; ``staged`` counts one chunk each by
+  dtype;
 - the port imports neither JAX nor the JAX package.
 
 The full-width comparison is in ``test_torch_port_flagship.py``.
@@ -14,6 +23,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 from flax import traverse_util
@@ -23,6 +33,8 @@ from lie_vae_tpu.models import LieVAE as JaxLieVAE
 from lie_vae_tpu_torch import serve as tserve
 from lie_vae_tpu_torch.compat import state_dict_from_jax
 from lie_vae_tpu_torch.models import LieVAE
+from lie_vae_tpu_torch.parallel import make_mesh
+from lie_vae_tpu_torch.precision import ieee_float32
 from test_torch_port_models import (  # noqa: F401
     no_persistent_compile_cache)
 
@@ -106,6 +118,103 @@ def test_from_npz_serves_a_jax_artifact(small_sessions, tmp_path):
     x = _images(4, 4)
     np.testing.assert_allclose(tsess.reconstruct(x), jsess.reconstruct(x),
                                rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_byte_scaling_is_numpys_division(device):
+    """Every byte, scaled on the device, is numpy's float32 x / 255 bit for
+    bit (a CUDA division by the host scalar 255 is not: it multiplies by
+    the reciprocal)."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    want = np.arange(256, dtype=np.uint8).astype(np.float32) / 255.0
+    x = torch.arange(256, device=device).to(torch.uint8).reshape(4, 8, 8)
+    out = torch.empty(x.shape, device=device)
+    table = torch.from_numpy(tserve.BYTE_SCALE).to(device)
+    assert tserve.scale_uint8(x, table, out) is out
+    np.testing.assert_array_equal(
+        out.cpu().numpy().reshape(-1).view(np.uint32), want.view(np.uint32))
+
+
+@pytest.fixture(scope="module")
+def staging_sessions(small_sessions, tmp_path_factory):
+    """The small weights served four ways at batch 4, seed 5: eager and
+    graphed (an export_aot artifact; eager on the CPU), each on one device
+    and over two CPU replicas."""
+    _, _, flat = small_sessions
+    model = LieVAE(device="cpu", **SMALL)
+    state = state_dict_from_jax(flat, model)
+    model.load_state_dict(state)
+    weights = str(tmp_path_factory.mktemp("staging") / "best.pt")
+    torch.save(state, weights)
+    mesh = make_mesh(2, devices=["cpu", "cpu"])
+    out = {}
+    for name, m in (("", None), ("_mesh", mesh)):
+        out["eager" + name] = tserve.InferenceSession(
+            LieVAE(device="cpu", **SMALL), state, batch_size=4, seed=5,
+            device="cpu", mesh=m)
+        art = tserve.export_aot_from_torch(
+            weights, model, weights[:-3] + name + "_aot.npz", batch_size=4,
+            mesh=m)
+        out["aot" + name] = tserve.AotSession(art, seed=5, device="cpu")
+    return out
+
+
+def _host_path(sess, fn, *arrays):
+    """``fn``'s answers by the host path the sessions served by before
+    their staging buffers: uint8 scaled by numpy, each chunk padded by
+    repeating its last row and split into one shard a replica, run there,
+    the outputs concatenated and cut to N rows."""
+    arrays = [a.astype(np.float32) / 255.0 if a.dtype == np.uint8
+              else np.asarray(a, np.float32) for a in arrays]
+    n, b = arrays[0].shape[0], sess.batch_size
+    models = ([r.model for r in sess._aot]
+              if isinstance(sess, tserve.AotSession)
+              else [m for m, _ in sess._replicas])
+    per = b // len(models)
+    parts = []
+    with torch.inference_mode(), ieee_float32():
+        for lo in range(0, n, b):
+            chunk = [np.concatenate(
+                [a[lo:lo + b]] + [a[-1:]] * max(0, lo + b - n))
+                for a in arrays]
+            for i, m in enumerate(models):
+                with sess._on(m):
+                    out = fn(*(torch.from_numpy(c[i * per:(i + 1) * per])
+                               for c in chunk))
+                parts.append([o.numpy() for o in (
+                    out if isinstance(out, tuple) else (out,))])
+    res = tuple(np.concatenate(p)[:n] for p in zip(*parts))
+    return res if len(res) > 1 else res[0]
+
+
+@pytest.mark.parametrize("n", [3, 4, 6])
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+@pytest.mark.parametrize("kind", ["eager", "eager_mesh", "aot", "aot_mesh"])
+def test_staged_answers_match_the_host_path(staging_sessions, kind, dtype,
+                                            n):
+    sess = staging_sessions[kind]
+    rng = np.random.default_rng(n)
+    x = (_images(n, n) if dtype == "uint8"
+         else rng.random((n, 64, 64, 3)).astype(np.float32))
+    eps = rng.normal(size=(n, 3)).astype(np.float32)
+    x.setflags(write=False)                       # as an HTTP body's
+    before = dict(sess.staged)
+    got = sess.reconstruct(x)
+    chunks = -(-n // sess.batch_size)
+    assert sess.staged == dict(before, **{dtype: before[dtype] + chunks})
+    assert got.shape == (n, 64, 64, 3) and got.flags.owndata
+    np.testing.assert_array_equal(got, _host_path(sess, sess._recon, x))
+    kept = got.copy()
+    enc = sess.encode(x, eps=eps)                 # three outputs
+    for k, want in zip(("pose", "sigma", "sample"),
+                       _host_path(sess, sess._encode, x, eps)):
+        np.testing.assert_array_equal(enc[k], want, err_msg=k)
+    np.testing.assert_array_equal(
+        sess.decode(enc["pose"]), _host_path(sess, sess._decode,
+                                             enc["pose"]))
+    np.testing.assert_array_equal(got, kept)      # not a reused buffer
 
 
 _PORT_SOURCES = [os.path.join(ROOT, "chip_smoke.py")] + [

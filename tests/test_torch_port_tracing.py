@@ -8,7 +8,8 @@ metrics that read them, on the CPU at a small size.
   ``train.losses`` only with a regularizer, ``train.backward``,
   ``train.optimizer``) under it with its id, the global step, and
   ``train.batch`` and ``train.inputs`` beside it; an ``AotSession``
-  reconstruct records one ``session.request`` whose children share its id.
+  reconstruct records one ``session.request`` whose children, each chunk's
+  six stages in order, share its id.
 - Every recorded span is among the profiler's events under its name,
   starting within 1 ms of the record (one clock).
 - The four readers (``port_bench/metrics``) give, on a
@@ -170,12 +171,11 @@ def test_session_spans(serve_run):
     assert requests[0].id == sess._requests
     req = requests[0]
     children = [s for s in spans if s.parent_id == req.span_id]
-    # two chunks: each cut, copied in, run and copied out; one gather
+    # two chunks: each staged, copied in, scaled, run, copied out and
+    # written into the answer
     assert [s.name for s in children] == [
-        "session.normalize", "session.chunk", "session.copy_in",
-        "session.replay", "session.copy_out", "session.chunk",
-        "session.copy_in", "session.replay", "session.copy_out",
-        "session.gather"]
+        "session.chunk", "session.copy_in", "session.normalize",
+        "session.replay", "session.copy_out", "session.gather"] * 2
     assert {s.name for s in children} == set(SESSION_CHILDREN)
     assert all(s.id == req.id for s in children)
     assert len(spans) == 1 + len(children)
@@ -234,7 +234,7 @@ def test_readers_recompute(train_runs, serve_run):
     assert len(_by_name(spans, "session.request")) == 1
     host = [s for s in spans if s.name in ("session.normalize",
                                            "session.chunk", "session.gather")]
-    assert len(host) == 4
+    assert len(host) == 6
     assert got == pytest.approx(
         sum(s.end_ns - s.start_ns for s in host) / 1e6)
 
