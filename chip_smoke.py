@@ -228,7 +228,21 @@ Phases, each timed:
    answer encode, decode and reconstruct at 64 as the single-device
    session does, within POSE_TOL and IMAGE_TOL; K1 once per replica per
    decode, graph replays counted; each session's three requests timed once
-   more warm, the single-device session's beside them.
+   more warm, the single-device session's beside them;
+29. the decoder's transposed convolutions: each layer of the flagship's
+   decoder and the grayscale head on the port's path at 512 images in
+   IEEE float32 against ``F.conv_transpose2d`` (forward, dx, dw, 1e-4 of
+   the largest entry), each pass's µs by CUDA events beside its floor at
+   67 TFLOP/s and beside ``F.conv_transpose2d``'s, the weight-gradient
+   kernel K7 (csrc/deconv_wgrad.cu, built in phase 2) launched once for
+   the dw of each hidden layer, never for the heads or the first layer (a
+   matrix product); K7 alone at deconv.7 (ms, device µs from a CUDA graph,
+   its plain version's ms, cuDNN's dw beside its bound, its error against
+   float64); then one float32 flagship step at 512 images under the
+   profiler: no kernel named TF32, bf16 or fp16. K7's launches are counted
+   with K1-K6 on every path above (3 a float32 step of the flagship
+   decoder, none in the bf16 recipe or in serving) and go into the
+   kernels record with them.
 
 The last lines are a JSON record of the kernels, the card line, and
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -779,7 +793,7 @@ def vmf_steps(cfg, weights, batch, x_dev, seed, counters, want,
         if delta != want:
             raise AssertionError(f"a {cfg['latent_mode']} step launched "
                                  f"{delta} (K1, K2 forward, K2 backward, K3, "
-                                 f"K4, K5, K6), expected {want}")
+                                 f"K4, K5, K6, K7), expected {want}")
         if not torch.isfinite(met_g["loss"]):
             raise AssertionError(f"non-finite loss {float(met_g['loss'])}")
         if step < checked:
@@ -2091,6 +2105,126 @@ def dp_serve_phase(weights, images, counters, counts):
     return out
 
 
+DECONV_LAYERS = {  # name: (C_in, C_out, H_in, stride, padding)
+    "deconv.1": (490, 200, 1, 1, 0), "deconv.3": (200, 200, 4, 2, 1),
+    "deconv.5": (200, 200, 8, 2, 1), "deconv.7": (200, 200, 16, 2, 1),
+    "deconv.9": (200, 3, 32, 2, 1), "head1": (200, 1, 32, 2, 1)}
+LOW_PRECISION = re.compile(r"tf32|bf16|f16", re.I)
+
+
+def deconv_phase(weights):
+    """Phase 29: each decoder layer's path (``nets.ConvTranspose2d``) at 512
+    images in IEEE float32 against ``F.conv_transpose2d`` (forward, dx, dw;
+    1e-4 of the largest entry), each pass's µs (CUDA events) beside its
+    floor at 67 TFLOP/s, the kernel's launches; K7 alone at deconv.7
+    (ms by CUDA events, device µs from a CUDA graph, its plain version's
+    ms, its largest error against float64); then one float32 flagship
+    step at 512 images under the profiler, whose trace must hold the
+    kernel (else it lost events) and no TF32, bf16 or fp16 kernel.
+    Returns (the layers' rows, K7's numbers)."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from lie_vae_tpu_torch.models import flagship_model, nets
+    from lie_vae_tpu_torch.ops.kernels.deconv_wgrad import (
+        deconv_wgrad, deconv_wgrad_plain, supports)
+    from lie_vae_tpu_torch.precision import ieee_float32
+    from lie_vae_tpu_torch.profile_serve import device_us
+    from lie_vae_tpu_torch.profile_train import passes
+    from lie_vae_tpu_torch.train import make_optimizer, train_step
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = {}
+    with ieee_float32():
+        for name, (c_in, c_out, h, stride, pad) in DECONV_LAYERS.items():
+            layer = nets.ConvTranspose2d(c_in, c_out, 4, stride, pad).cuda()
+            x = torch.randn((512, c_in, h, h), device="cuda", generator=gen)
+            w, b = layer.weight.detach(), layer.bias.detach()
+            flops = 2.0 * c_in * c_out * 16 * h * h * 512
+            row = {"floor_us": 1e6 * flops / FP32_FLOP_PER_S}
+            for route, fn in (
+                    ("port", lambda x, w, b: torch.func.functional_call(
+                        layer, {"weight": w, "bias": b}, (x,))),
+                    ("conv_transpose2d", lambda x, w, b: F.conv_transpose2d(
+                        x, w, b, stride, pad))):
+                torch.manual_seed(0)
+                calls = passes(fn, x, w, b)
+                before = deconv_wgrad.launches
+                outs = {p: c() for p, c in calls.items()}
+                row[route + "_launches"] = deconv_wgrad.launches - before
+                row[route] = {p: 1e3 * cuda_ms(c, trials=3, per_trial=3)
+                              for p, c in calls.items()}
+                if route == "port":
+                    got = outs
+            row["gap"] = {p: float((got[p] - outs[p]).abs().max()
+                                   / outs[p].abs().max()) for p in outs}
+            was = row["conv_transpose2d"]
+            print(f"   {name}: " + ", ".join(
+                f"{p} {row['port'][p]:.1f} us (was {was[p]:.1f}, gap "
+                f"{row['gap'][p]:.1e})" for p in outs)
+                + f"; floor {row['floor_us']:.1f} us a pass; kernel "
+                f"launches {row['port_launches']}")
+            if max(row["gap"].values()) > 1e-4:
+                raise AssertionError(f"{name}: the port's transposed conv "
+                                     f"against F.conv_transpose2d: {row}")
+            want = int(stride == 2 and supports(c_out, h))
+            if row["port_launches"] != want:
+                raise AssertionError(f"{name}: {row['port_launches']} "
+                                     f"kernel launches, expected {want}")
+            rows[name] = row
+            if name == "deconv.7":
+                dy = torch.randn((512, c_out, 2 * h, 2 * h), device="cuda",
+                                 generator=gen)
+                exact = torch.ops.aten.convolution_backward(
+                    dy.double(), x.double(), w.double(), None, [2, 2],
+                    [1, 1], [1, 1], True, [0, 0], 1,
+                    [False, True, False])[1]
+                err = float((deconv_wgrad(x, dy).double() - exact)
+                            .abs().max())
+                k7 = {"shape": "deconv.7: B=512, C_in=C_out=200, 16x16 "
+                               "-> 32x32",
+                      "ms": cuda_ms(lambda: deconv_wgrad(x, dy), trials=3,
+                                    per_trial=3),
+                      "device_us": device_us(lambda: deconv_wgrad(x, dy)),
+                      "plain_ms": cuda_ms(
+                          lambda: deconv_wgrad_plain(x, dy), trials=3,
+                          per_trial=3),
+                      "library_ms": row["conv_transpose2d"]["dw"] / 1e3,
+                      "bound_ms": 1e3 * flops / FP32_FLOP_PER_S,
+                      "bound_by": "operations",
+                      "max_abs_err": err,
+                      "max_rel_err": err / float(exact.abs().max())}
+                del dy, exact
+                print(f"   K7 alone at deconv.7: {k7['ms']:.3f} ms (CUDA "
+                      f"events), {k7['device_us']:.1f} device us (a CUDA "
+                      f"graph), plain {k7['plain_ms']:.3f} ms, cuDNN's dw "
+                      f"{k7['library_ms']:.3f} ms, bound "
+                      f"{k7['bound_ms']:.3f} ms; against float64 "
+                      f"{err:.3e} ({k7['max_rel_err']:.1e} of the largest)")
+                if not k7["max_rel_err"] <= 1e-5:
+                    raise AssertionError(f"K7 against float64: {k7}")
+        model = flagship_model()
+        model.load_state_dict(weights, strict=True)
+        opt = make_optimizer(model.named_parameters(), lr=1e-3,
+                             clip_grads=1e-5)
+        images = torch.randint(0, 256, (512, 64, 64, 3), dtype=torch.uint8,
+                               device="cuda", generator=gen)
+        noise = torch.Generator().manual_seed(0)
+        train_step(model, opt, images, 1.0, generator=noise)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            train_step(model, opt, images, 1.0, generator=noise)
+            torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    low = [n for n in names if LOW_PRECISION.search(n)]
+    print(f"   the float32 step at 512 images: {len(names)} device kernels "
+          f"by name, {len(low)} named TF32, bf16 or fp16; the kernel's: "
+          f"{[n for n in names if 'deconv_wgrad' in n]}")
+    if low or not any("deconv_wgrad" in n for n in names):
+        raise AssertionError(f"the float32 step's trace: low-precision "
+                             f"kernels {low} among {len(names)} names")
+    return rows, k7
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card: torch.cuda.is_available() "
@@ -2106,6 +2240,7 @@ def main():
     from lie_vae_tpu_torch.ops.kernels import so3_density
     from lie_vae_tpu_torch.ops.kernels import wigner_block
     from lie_vae_tpu_torch.ops.kernels import wigner_fused
+    from lie_vae_tpu_torch.ops.kernels.deconv_wgrad import deconv_wgrad
     from lie_vae_tpu_torch.ops.wigner import block_wigner_apply_zjz
     from lie_vae_tpu_torch.precision import ieee_float32
     from lie_vae_tpu_torch.profile_serve import device_us, profile_request
@@ -2137,7 +2272,7 @@ def main():
     t0 = phase("build (one nvcc per source and g++ for the host library, "
                "all started together; beside them the profiler's first use "
                "and a fresh interpreter's start)")
-    sources = ("wigner_chain", "so3_density", "wigner_block")
+    sources = ("wigner_chain", "so3_density", "wigner_block", "deconv_wgrad")
     host = "render_native"
     cached = {n: os.path.exists(_build.library_path(n)) for n in sources}
     cached[host] = os.path.exists(_build.host_library_path(host))
@@ -2765,10 +2900,11 @@ def main():
     counters = ((fused, "launches"), (fused, "launches_residuals"),
                 (fused, "launches_backward"), (dens, "launches"),
                 (dens, "launches_backward"), (block, "launches"),
-                (block, "launches_backward"))
+                (block, "launches_backward"), (deconv_wgrad, "launches"))
 
     def counts():
-        prefix = {id(fused): "", id(dens): "density_", id(block): "block_"}
+        prefix = {id(fused): "", id(dens): "density_", id(block): "block_",
+                  id(deconv_wgrad): "deconv_"}
         return {prefix[id(obj)] + attr: getattr(obj, attr)
                 for obj, attr in counters}
 
@@ -2779,10 +2915,10 @@ def main():
     os.makedirs(PROFILE_DIR, exist_ok=True)
     train_runs = {}
     for recipe, impl, want in (
-            (False, "fused", [0, 1, 1, 1, 1, 0, 0]),
-            (False, "pallas", [0, 0, 0, 1, 1, 1, 1]),
-            (True, "fused", [0, 1, 1, 1, 1, 0, 0]),
-            (True, "pallas", [0, 0, 0, 1, 1, 1, 1])):
+            (False, "fused", [0, 1, 1, 1, 1, 0, 0, 3]),
+            (False, "pallas", [0, 0, 0, 1, 1, 1, 1, 3]),
+            (True, "fused", [0, 1, 1, 1, 1, 0, 0, 0]),
+            (True, "pallas", [0, 0, 0, 1, 1, 1, 1, 0])):
         key = ("bf16_" if recipe else "") + impl
         t0 = phase(
             f"training, kernel_impl={impl!r}: "
@@ -2798,7 +2934,7 @@ def main():
         if delta != want:
             raise AssertionError(
                 f"launches in the card's step (K1, K2 forward, K2 backward, "
-                f"K3, K4, K5, K6): {delta}, expected {want}")
+                f"K3, K4, K5, K6, K7): {delta}, expected {want}")
         for obj, attr in counters:
             setattr(obj, attr, 0)
         noise = torch.Generator().manual_seed(3)
@@ -2814,7 +2950,7 @@ def main():
             if delta != want:
                 raise AssertionError(
                     f"launches in one step (K1, K2 forward, K2 backward, "
-                    f"K3, K4, K5, K6): {delta}, expected {want}")
+                    f"K3, K4, K5, K6, K7): {delta}, expected {want}")
             losses.append(metrics["loss"])
         launched = counts()
         losses = torch.stack(losses).cpu()
@@ -2830,7 +2966,7 @@ def main():
         train_runs[key] = (train_ms, step_ms[:2], losses, launched, prof)
         print(f"   {TRAIN_STEPS} steps: losses {losses[0]:.4f} .. "
               f"{losses[-1]:.4f}, all finite; launches per step (K1, K2 "
-              f"forward, K2 backward, K3, K4, K5, K6) {want}")
+              f"forward, K2 backward, K3, K4, K5, K6, K7) {want}")
         print(f"   ms per step (host clock, synchronised, median of steps "
               f"3-{TRAIN_STEPS}): {train_ms:.3f}; first two "
               f"{step_ms[0]:.3f}, {step_ms[1]:.3f}")
@@ -3026,7 +3162,7 @@ def main():
     nopt = make_optimizer(nmodel.named_parameters(), lr=1e-3,
                           clip_grads=1e-5)
     noise = torch.Generator().manual_seed(6)
-    want = [0, 1, 1, 0, 0, 0, 0]
+    want = [0, 1, 1, 0, 0, 0, 0, 3]
     for _ in range(NORMAL_STEPS):
         before = [getattr(obj, attr) for obj, attr in counters]
         metrics = train_step(nmodel, nopt, x_dev, 1.0, generator=noise)
@@ -3038,7 +3174,7 @@ def main():
                                  f"{float(metrics['loss'])}")
     print(f"   {NORMAL_STEPS} steps, loss {float(metrics['loss']):.4f}; "
           f"launches per step (K1, K2 forward, K2 backward, K3, K4, K5, "
-          f"K6) {want}")
+          f"K6, K7) {want}")
     state = {k: v.detach().cpu() for k, v in nmodel.state_dict().items()}
     nsess = InferenceSession(LieVAE(**normal_cfg), state, batch_size=64)
     ncpu = InferenceSession(LieVAE(**dict(normal_cfg, device="cpu")), state,
@@ -3105,15 +3241,15 @@ def main():
             f"tol {BIAS_TOL}) and {bias[2]:.3e} (CPU) of their weight's "
             "gradient")
 
-    for impl, want in (("fused", [0, 1, 1, 0, 0, 0, 0]),
-                       ("pallas", [0, 0, 0, 0, 0, 1, 1])):
+    for impl, want in (("fused", [0, 1, 1, 0, 0, 0, 0, 3]),
+                       ("pallas", [0, 0, 0, 0, 0, 1, 1, 3])):
         tv = time.perf_counter()
         vmodel, vopt, vmf_paths[impl], vmf_worst[impl], vloss = vmf_steps(
             dict(vcfg, kernel_impl=impl), vweights, batch, x_dev, 9,
             counters, want, checked=1)
         print(f"   vmfq/action, {impl!r}: {VMF_STEPS} steps, loss {vloss:.4f}"
               f" after them, launches {vmf_paths[impl]} (K1, K2 forward, K2 "
-              f"backward, K3, K4, K5, K6); the first against the exact "
+              f"backward, K3, K4, K5, K6, K7); the first against the exact "
               "step: "
               + shares(vmf_worst[impl])
               + f"; {time.perf_counter() - tv:.2f} s")
@@ -3157,7 +3293,8 @@ def main():
     mcfg = dict(VMF_CFG, latent_mode="vmf", decoder_mode="mlp")
     mweights = seeded(mcfg, 10)
     *_, vmf_worst["vmf_mlp"], mloss = vmf_steps(
-        mcfg, mweights, batch, x_dev, 11, counters, [0] * 7, checked=1)
+        mcfg, mweights, batch, x_dev, 11, counters, [0] * 7 + [3],
+        checked=1)
     print(f"   vmf/mlp: {VMF_STEPS} steps, loss {mloss:.4f}, no kernel "
           "launched; the first against the exact step: "
           + shares(vmf_worst["vmf_mlp"]))
@@ -3306,9 +3443,10 @@ def main():
     for obj, attr in counters:
         setattr(obj, attr, 0)
     reg_total = dict.fromkeys(counts(), 0)
-    for impl, rotate, want in (("fused", "shear", [0, 1, 1, 1, 1, 0, 0]),
-                               ("pallas", "shear", [0, 0, 0, 1, 1, 1, 1]),
-                               ("fused", "gather", [0, 1, 1, 1, 1, 0, 0])):
+    for impl, rotate, want in (
+            ("fused", "shear", [0, 1, 1, 1, 1, 0, 0, 3]),
+            ("pallas", "shear", [0, 0, 0, 1, 1, 1, 1, 3]),
+            ("fused", "gather", [0, 1, 1, 1, 1, 0, 0, 3])):
         t0 = phase(f"the regularised step, kernel_impl={impl!r}, rotation "
                    f"{rotate!r}: the flagship from the converged weights, "
                    f"equivariance {REG_EQ:g}, encoder continuity "
@@ -3324,7 +3462,7 @@ def main():
         if delta != want:
             raise AssertionError(f"launches in the card's regularised step "
                                  f"(K1, K2 forward, K2 backward, K3, K4, K5, "
-                                 f"K6): {delta}, expected {want}")
+                                 f"K6, K7): {delta}, expected {want}")
         if rotate == "gather":
             reg_total = {k: reg_total[k] + d for k, d in zip(before, delta)}
             done(t0)
@@ -3538,6 +3676,11 @@ def main():
     toy_sweep = toy_sweep_phase(counters, counts)
     dp_train = dp_train_phase(weights, batch, counters, dp_launches)
     dp_serve = dp_serve_phase(weights, batch, counters, counts)
+
+    t0 = phase("the decoder's transposed convolutions at 512 images against "
+               "F.conv_transpose2d, and the float32 step's kernels")
+    deconv, k7 = deconv_phase(weights)
+    done(t0)
     # the kernels each new path must launch, and no training kernel
     new_paths = {"analysis": (analysis_launches, ("launches",)),
                  "analysis_pallas": (analysis_pallas_launches,
@@ -3623,6 +3766,10 @@ def main():
             if not back:
                 kernels[-1]["device_us_iwll_n500"] = iwll_us
                 kernels[-1]["device_us_iwll_n500_k30"] = iwll30_us
+    kernels.append(dict(
+        k7, name="deconv_wgrad", route="cuda",
+        source="lie_vae_tpu_torch/csrc/deconv_wgrad.cu", replaces=None,
+        launches=train_launches["deconv_launches"]))
     # each kernel's launches on every path this script drives, counts set
     # to 0 just before the path and read just after
     paths = {f"train_{k}": v[3] for k, v in train_runs.items()}
@@ -3660,7 +3807,8 @@ def main():
                "so3_density_fwd": "density_launches",
                "so3_density_bwd": "density_launches_backward",
                "wigner_block_fwd": "block_launches",
-               "wigner_block_bwd": "block_launches_backward"}[entry["name"]]
+               "wigner_block_bwd": "block_launches_backward",
+               "deconv_wgrad": "deconv_launches"}[entry["name"]]
         entry["launches_by_path"] = {p: c[key] for p, c in paths.items()}
         entry["launches_by_path"]["toy_generate"] = (
             toy_gen["k1"] if key == "launches" else 0)
@@ -3707,7 +3855,7 @@ def main():
               "toy_inputs_err": toy_err, "eval_s": eval_s, "iwll": iwll,
               "eval_sigma": ev["sigma"],
               "toy_sweep": toy_sweep, "dp_train": dp_train,
-              "dp_serve": dp_serve,
+              "dp_serve": dp_serve, "deconv": deconv,
               "total_s": time.perf_counter() - t_start}
     print(json.dumps(record))
     print(card)

@@ -10,6 +10,17 @@ decomposition of the stride-2 transpose conv, an XLA rewrite and not a
 Pallas kernel) computes the same function as
 ``nn.ConvTranspose2d(k=4, s=2, p=1)``.
 
+A convolution takes one path, fixed by its shape, its dtype and its
+device, whether or not it has a compute dtype or a ``model`` split. In
+float32 on a card, a layer whose window covers its whole input (the
+encoder's last conv, ``DeconvNet``'s 1x1 -> 4x4 first) is one matrix
+product, and a hidden k4 s2 p1 transposed conv runs its forward in that
+sub-pixel form (one stride-1 2x2 convolution of the four output phases,
+interleaved) and its weight gradient by ``ops.kernels.deconv_wgrad``
+(:func:`conv_transpose_s2`). The rest (the image heads, bfloat16, the
+CPU) goes to cuDNN or the CPU's own convolution. Each route is the one
+measured fastest for its case (``compare_deconv``, ``PERF.md``).
+
 Compute dtypes follow flax's ``dtype=`` on a layer: the parameters stay
 float32; with a ``compute_dtype`` (e.g. ``torch.bfloat16``) a layer casts
 its input, weight and bias to it, computes the product without the bias,
@@ -33,6 +44,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lie_vae_tpu_torch.ops.kernels.deconv_wgrad import deconv_wgrad
+from lie_vae_tpu_torch.ops.kernels.deconv_wgrad import (
+    supports as deconv_wgrad_supports)
+
 ACTIVATIONS = {"relu": nn.ReLU, "softplus": nn.Softplus, "tanh": nn.Tanh}
 
 _LOW = (torch.bfloat16, torch.float16)
@@ -44,46 +59,186 @@ def _to_float32(x):
 
 
 class _CastMixin:
-    """A layer with an optional ``compute_dtype`` (:mod:`nets`)."""
+    """A layer with an optional ``compute_dtype`` (:mod:`nets`): the
+    product with its bias by the layer's shape (``_product``); over a
+    ``model`` split the product of the rank's block of output features,
+    gathered over the features, then the bias, which stays whole."""
 
     def __init__(self, *args, compute_dtype=None, **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
-        cdt = self.compute_dtype
+        cdt = self.compute_dtype or torch.promote_types(x.dtype,
+                                                        self.weight.dtype)
+        x, w, bias = x.to(cdt), self.weight.to(cdt), self.bias.to(cdt)
         split = getattr(self, "model_split", None)
-        if cdt is None and split is None:
-            dt = torch.promote_types(x.dtype, self.weight.dtype)
-            return super().forward(x.to(dt))
-        if cdt is None:
-            cdt = torch.promote_types(x.dtype, self.weight.dtype)
         if split is None:
-            y = self._product(x.to(cdt), self.weight.to(cdt))
-        else:
-            # the weight holds this rank's block of output features
-            # (parallel.shard_state): the product's block, then the
-            # gathered features; the bias stays whole and is added after
-            y = self._product(split.copy_in(x.to(cdt)), self.weight.to(cdt))
-            y = split.gather(y, -1 if isinstance(self, nn.Linear) else 1)
-        bias = self.bias.to(cdt)
-        return y + (bias if isinstance(self, nn.Linear)
-                    else bias[:, None, None])
+            return self._product(x, w, bias)
+        # the weight holds this rank's block of output features
+        # (parallel.shard_state)
+        y = split.gather(self._product(split.copy_in(x), w), self._features)
+        return y + (bias if self._features == -1 else bias[:, None, None])
+
+    def _inside(self, bias):
+        """The bias a library's product may take into its sums: without a
+        compute dtype (with one, flax rounds the product, then the sum)."""
+        return bias if self.compute_dtype is None else None
 
 
 class Linear(_CastMixin, nn.Linear):
-    def _product(self, x, w):
-        return F.linear(x, w)
+    _features = -1
+
+    def _product(self, x, w, bias=None):
+        """``F.linear``, the bias inside where :meth:`_inside` allows."""
+        inside = self._inside(bias)
+        y = F.linear(x, w, inside)
+        return y if bias is None or inside is not None else y + bias
 
 
 class Conv2d(_CastMixin, nn.Conv2d):
-    def _product(self, x, w):
-        return F.conv2d(x, w, None, self.stride, self.padding)
+    _features = 1
+
+    def _product(self, x, w, bias=None):
+        """In float32 on a card, a layer whose window covers its whole
+        input (``ConvEncoder``'s last) as one matrix product over the
+        input's channels-last rows, the bias after; any other through
+        ``conv2d``, the bias inside where :meth:`_inside` allows."""
+        if (_card_float32(x) and self.kernel_size == tuple(x.shape[-2:])
+                and self.padding == (0, 0) and self.dilation == (1, 1)
+                and self.groups == 1):
+            n, c_out = x.shape[0], w.shape[0]
+            y = F.linear(x.permute(0, 2, 3, 1).reshape(n, -1),
+                         w.permute(0, 2, 3, 1).reshape(c_out, -1))
+            y = y.view(n, c_out, 1, 1)
+        else:
+            inside = self._inside(bias)
+            y = F.conv2d(x, w, inside, self.stride, self.padding,
+                         self.dilation, self.groups)
+            if inside is not None:
+                return y
+        return _add_bias(y, bias)
 
 
 class ConvTranspose2d(_CastMixin, nn.ConvTranspose2d):
-    def _product(self, x, w):
-        return F.conv_transpose2d(x, w, None, self.stride, self.padding)
+    _features = 1
+
+    def _product(self, x, w, bias=None):
+        """In float32 on a card, a hidden k4 s2 p1 layer (C_out of at
+        least 25 and an input width ``deconv_wgrad`` is built for) through
+        :func:`conv_transpose_s2` and a k4 s1 p0 layer on a 1x1 input
+        (``DeconvNet``'s first) as one matrix product, the bias after; any
+        other through ``conv_transpose2d``, the bias inside where
+        :meth:`_inside` allows."""
+        plain = (_card_float32(x) and self.output_padding == (0, 0)
+                 and self.dilation == (1, 1) and self.groups == 1
+                 and self.kernel_size == (4, 4))
+        if (plain and self.stride == (2, 2) and self.padding == (1, 1)
+                and deconv_wgrad_supports(w.shape[1], x.shape[-1])):
+            return conv_transpose_s2(x, w, bias)
+        if (plain and self.stride == (1, 1) and self.padding == (0, 0)
+                and x.shape[-2:] == (1, 1)):
+            n, c_in, c_out = x.shape[0], w.shape[0], w.shape[1]
+            y = (x.flatten(1) @ w.reshape(c_in, 16 * c_out)).view(
+                n, c_out, 4, 4)
+        else:
+            inside = self._inside(bias)
+            y = F.conv_transpose2d(x, w, inside, self.stride, self.padding,
+                                   self.output_padding, self.groups,
+                                   self.dilation)
+            if inside is not None:
+                return y
+        return _add_bias(y, bias)
+
+
+def _card_float32(x):
+    """Whether ``x`` is float32 on a card: where the matrix products, the
+    sub-pixel forward and ``deconv_wgrad`` were measured faster than
+    cuDNN's convolutions (in bfloat16 and on the CPU they were not;
+    ``PERF.md``)."""
+    return x.is_cuda and x.dtype == torch.float32
+
+
+def _add_bias(y, bias):
+    """The product, then the bias in the product's dtype (a backend that
+    took the bias into its sums would round a bfloat16 output once where
+    flax rounds it twice)."""
+    return y if bias is None else y + bias[:, None, None]
+
+
+def _phase_kernel(w):
+    """(C_in, C_out, 4, 4) transposed-conv weight -> the (4 C_out, C_in, 2,
+    2) conv2d weight whose output channels are the four output phases
+    (r, s, C_out): output row 2m + r reads input rows m - 1 + r + t, t in
+    (0, 1), through kernel row 3 - r - 2t, and columns likewise."""
+    c_in, c_out = w.shape[:2]
+    a = w.flip(2, 3).reshape(c_in, c_out, 2, 2, 2, 2)   # (.., t, r, u, s)
+    return a.permute(3, 5, 1, 0, 2, 4).reshape(4 * c_out, c_in, 2, 2)
+
+
+def _phases(o, c_out, h, w):
+    """The (B, C_out, H, 2, W, 2) view of the phase conv's (B, 4 C_out,
+    H + 1, W + 1) output that is the transposed conv's output: phase (r, s)
+    of output (2m + r, 2n + s) sits at (m + r, n + s)."""
+    sb, sc, sh, sw = o.stride()
+    return o.as_strided(
+        (o.shape[0], c_out, h, 2, w, 2),
+        (sb, sc, sh, 2 * c_out * sc + sh, sw, c_out * sc + sw),
+        o.storage_offset())
+
+
+def phase_forward(x, w, bias=None):
+    """``F.conv_transpose2d(x, w, bias, stride=2, padding=1)`` of a 4x4
+    kernel in its sub-pixel form: one stride-1 2x2 convolution of ``x``
+    padded by one, whose 4 C_out output channels are the four output
+    phases, written interleaved into the NCHW output with the bias added
+    in the same pass; ``x`` NCHW."""
+    n, _, h, wd = x.shape
+    c_out = w.shape[1]
+    o = F.conv2d(x, _phase_kernel(w).contiguous(), None, 1, 1)
+    y = torch.empty((n, c_out, 2 * h, 2 * wd), dtype=o.dtype,
+                    device=o.device)
+    y6 = y.unflatten(3, (wd, 2)).unflatten(2, (h, 2))
+    if bias is None:
+        y6.copy_(_phases(o, c_out, h, wd))
+    else:
+        torch.add(_phases(o, c_out, h, wd), bias.view(1, c_out, 1, 1, 1, 1),
+                  out=y6)
+    return y
+
+
+class _ConvTransposeS2(torch.autograd.Function):
+    """A k4 s2 p1 transposed conv, NCHW: the forward in the sub-pixel form
+    (:func:`phase_forward`), dx by cuDNN (its forward-conv GEMM), dw by
+    :func:`~lie_vae_tpu_torch.ops.kernels.deconv_wgrad.deconv_wgrad` (the
+    kernel on a card, its plain version on the CPU), db a sum."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias):
+        x = x.contiguous()
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = bias is not None
+        return phase_forward(x, w, bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        need_x, need_w, need_b = ctx.needs_input_grad
+        dx = None
+        if need_x:
+            dx = torch.ops.aten.convolution_backward(
+                dy, x, w, None, [2, 2], [1, 1], [1, 1], True, [0, 0], 1,
+                [True, False, False])[0]
+        dw = deconv_wgrad(x, dy) if need_w else None
+        db = dy.sum(dim=(0, 2, 3)) if ctx.has_bias and need_b else None
+        return dx, dw, db
+
+
+def conv_transpose_s2(x, w, bias=None):
+    """``F.conv_transpose2d(x, w, bias, stride=2, padding=1)`` for a
+    (C_in, C_out, 4, 4) weight (:class:`_ConvTransposeS2`); NCHW out."""
+    return _ConvTransposeS2.apply(x, w, bias)
 
 
 class BatchNorm2d(nn.BatchNorm2d):

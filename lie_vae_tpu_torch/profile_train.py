@@ -1,7 +1,7 @@
 """Where a training step's time goes on the card.
 
-    python -m lie_vae_tpu_torch.profile_train [--steps 20] [--batch 64]
-        [--kernel_impl fused|pallas] [--bench_recipe] [--find_kernel NAME]
+    python -m lie_vae_tpu_torch.profile_train [--steps 20] [--batch 512]
+        [--kernel_impl fused|pallas] [--bench_recipe] [--find_kernel NAME ...]
 
 Trains the flagship model as ``bench.py`` does (sigma clamp pi * 10 / 2,
 lr 1e-3, clip 1e-5, beta 1; float32 throughout, in IEEE float32 as
@@ -18,13 +18,17 @@ the rest is the idle share), the device us per step of the costliest
 device items, of every cuDNN convolution kernel and of the port's own
 kernels (the Wigner chain, the
 synthesise-then-apply Wigner product and the SO(3) density), and their
-sum. Then it profiles each kernel of that path alone at the batch's shape
-and at B = 4096. The trace files go to ``build/profile/``.
+sum. Then it gives the decoder's transposed convolutions' device time by
+layer and pass (forward, dx, dw; :func:`decoder_passes`), and profiles
+each kernel of the Lie-group path alone at the batch's shape and at B =
+4096. The batch defaults to the benchmark's 512 images a step. The trace
+files go to ``build/profile/``.
 
-``--find_kernel NAME`` names the layers behind the device kernels whose
-name holds NAME: it profiles two steps with ``record_shapes`` and prints,
-for each such kernel, the operator that launched it with its input shapes
-(and dtypes, where torch records them), and the model's parameters (by name) whose shape is among them.
+``--find_kernel NAME ...`` names the layers behind the device kernels
+whose name holds each NAME: it profiles two steps with ``record_shapes``
+and prints, for each such kernel, the operator that launched it with its
+input shapes (and dtypes, where torch records them), and the model's
+parameters (by name) whose shape is among them.
 """
 import argparse
 import math
@@ -51,6 +55,118 @@ _KERNELS = ("wigner_chain", "wigner_block", "so3_density")
 # the conv stack's cuDNN kernels (implicit GEMMs, dgrad and wgrad engines),
 # listed with the port's own whatever their rank
 _CONV = ("xmma", "cudnn", "grad")
+PEAK = 67e12    # the H100's float32 FMA rate outside the tensor cores
+
+
+def time_ms(fn, calls, trials):
+    """Median over ``trials`` of the ms per call of ``calls`` calls (CUDA
+    events), after two calls."""
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
+def kernels(fn, calls=1):
+    """{device kernel name: µs a call} of ``calls`` calls of ``fn``,
+    profiled."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + e.device_time / calls
+    return out
+
+
+def passes(fn, x, w, b):
+    """{pass: a call} for the forward, dx and dw of ``fn(x, w, b)``: the
+    gradients are taken of one recorded graph, kept for repeated calls;
+    the output's gradient is drawn in its shape and dtype and laid out as
+    it is."""
+    y = fn(x, w, b)
+    g = torch.randn(y.shape, dtype=y.dtype, device=y.device).contiguous(
+        memory_format=torch.contiguous_format if y.is_contiguous()
+        else torch.channels_last)
+    xg = x.detach().requires_grad_(True)
+    wg = w.detach().requires_grad_(True)
+    y_dx = fn(xg, w, b)
+    y_dw = fn(x, wg, b)
+
+    def forward():
+        with torch.no_grad():
+            return fn(x, w, b)
+
+    return {"forward": forward,
+            "dx": lambda: torch.autograd.grad(y_dx, xg, g,
+                                              retain_graph=True)[0],
+            "dw": lambda: torch.autograd.grad(y_dw, wg, g,
+                                              retain_graph=True)[0]}
+
+
+def decoder_passes(model, step, calls=3):
+    """Device µs of each of the decoder's transposed convolutions' forward,
+    input gradient (dx) and weight gradient (dw), on the model's own path
+    at the inputs one call of ``step`` hands it: each pass alone, its
+    kernels summed over ``calls`` profiled calls. Prints a row a layer and
+    pass (µs, TFLOP/s and share of the 67 TFLOP/s float32 peak, the two
+    costliest kernels) and returns {(layer, pass): µs}."""
+    from torch.func import functional_call
+    convs = [(n, m) for n, m in model.named_modules()
+             if isinstance(m, torch.nn.ConvTranspose2d)]
+    seen = {}
+
+    def keep(name):
+        def hook(mod, args, out):
+            seen.setdefault(name, args[0].detach())
+        return hook
+
+    hooks = [m.register_forward_hook(keep(n)) for n, m in convs]
+    try:
+        step()
+    finally:
+        for h in hooks:
+            h.remove()
+    print(f"the decoder's transposed convolutions by layer and pass "
+          f"(device us a call, {calls} calls profiled):")
+    out, total = {}, {}
+    for n, mod in convs:
+        x = seen[n]
+        c_in, c_out, kh, kw = mod.weight.shape
+        flops = 2.0 * c_in * c_out * kh * kw * x[0, 0].numel() * x.shape[0]
+        calls_of = passes(
+            lambda x, w, b, mod=mod: functional_call(
+                mod, {"weight": w, "bias": b}, (x,)),
+            x, mod.weight.detach(), mod.bias.detach())
+        for p, call in calls_of.items():
+            names = kernels(call, calls)
+            us = sum(names.values())
+            out[(n, p)] = us
+            total[p] = total.get(p, 0.0) + us
+            top = sorted(names.items(), key=lambda kv: -kv[1])[:2]
+            print(f"    {n:18s} {p:7s} {us:9.1f} us "
+                  f"{flops / us / 1e6:6.2f} TFLOP/s "
+                  f"{100 * flops / us / 1e-6 / PEAK:5.1f}% | "
+                  + "; ".join(f"{k[:56]} {v:.0f}" for k, v in top))
+    print("    by pass: " + ", ".join(f"{p} {us:.1f} us"
+                                       for p, us in total.items())
+          + f"; together {sum(total.values()):.1f} us")
+    return out
 
 
 def find_kernel(model, step, name, steps=2):
@@ -89,14 +205,14 @@ def find_kernel(model, step, name, steps=2):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--kernel_impl", default="fused",
                     choices=["fused", "pallas"])
     ap.add_argument("--bench_recipe", action="store_true",
                     help="bench.py's bfloat16 stacks and float32 image head")
-    ap.add_argument("--find_kernel", default=None,
+    ap.add_argument("--find_kernel", nargs="+", default=(),
                     help="name the layers behind the device kernels whose "
-                         "name holds this")
+                         "name holds one of these")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
@@ -122,8 +238,9 @@ def main(argv=None):
         train_step(model, opt, x, 1.0, generator=noise)
 
     step()
-    if args.find_kernel:
-        find_kernel(model, step, args.find_kernel)
+    for kname in args.find_kernel:
+        find_kernel(model, step, kname)
+    decoder_passes(model, step)
     name = f"train_step_{args.kernel_impl}" + (
         "_bf16" if args.bench_recipe else "")
     per_step, _ = profile_request(name, step, args.steps, out_dir,

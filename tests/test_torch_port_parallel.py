@@ -39,7 +39,8 @@ from lie_vae_tpu_torch.models import LieVAE
 from lie_vae_tpu_torch.models import nets
 from lie_vae_tpu_torch.parallel import (batch_spec, make_mesh,
                                         param_shardings, shard_batch)
-from lie_vae_tpu_torch.parallel.mesh import ModelSplit, take_shard
+from lie_vae_tpu_torch.parallel.mesh import (ModelSplit, shard_state,
+                                             take_shard)
 from test_torch_port_train import SMALL
 from test_torch_port_models import (  # noqa: F401
     no_persistent_compile_cache)
@@ -231,6 +232,51 @@ def test_column_parallel_backward_equals_the_unsplit_layer(kind):
                                                   2), rtol=0, atol=1e-12)
         np.testing.assert_allclose(gb, layer.bias.grad, rtol=0, atol=1e-12)
     assert y.shape[fdim] == 2 * outs[0][2].shape[wdim]
+
+
+class _StateMesh(_ThreadMesh):
+    """A rank of :class:`_ThreadMesh` as ``shard_state`` takes it: a
+    process mesh whose replicas start equal (the broadcast a no-op)."""
+    distributed = True
+
+    def broadcast_(self, t):
+        return t
+
+
+def test_shard_state_splits_the_ports_linear_and_conv_layers():
+    """``shard_state`` splits a port ``Linear`` (as the MLP decoder's
+    Linear(50, 490)) and a ``ConvTranspose2d`` over two ``model`` ranks, and
+    the split model equals the whole one, forward and backward."""
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(
+        nets.Linear(50, 490), torch.nn.ReLU(),
+        torch.nn.Unflatten(1, (490, 1, 1)),
+        nets.ConvTranspose2d(490, 8, 4, 1, 0)).double()
+    x = torch.randn((3, 50), dtype=torch.float64)
+    y = model(x)
+    dout = torch.randn_like(y)
+    (y * dout).sum().backward()
+    bus = _Bus(2)
+
+    def rank(r):
+        part = copy.deepcopy(model)
+        for p in part.parameters():
+            p.grad = None
+        where = shard_state(part, _StateMesh(bus, r, "model"))
+        yr = part(x)
+        (yr * dout).sum().backward()
+        return where, yr.detach(), {n: p.grad
+                                    for n, p in part.named_parameters()}
+
+    for r, (where, yr, grads) in enumerate(_in_threads(rank)):
+        assert where == {"0.weight": 0, "0.bias": None, "3.weight": 1,
+                         "3.bias": None}
+        np.testing.assert_allclose(yr, y.detach(), rtol=0, atol=1e-12)
+        for n, p in model.named_parameters():
+            want = (p.grad if where[n] is None
+                    else take_shard(p.grad, where[n], r, 2))
+            assert grads[n].shape == want.shape
+            np.testing.assert_allclose(grads[n], want, rtol=0, atol=1e-12)
 
 
 def test_batchnorm_takes_the_global_batch_statistics():
