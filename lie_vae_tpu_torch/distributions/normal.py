@@ -10,6 +10,8 @@ import math
 
 import torch
 
+from lie_vae_tpu_torch.utils import onto
+
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
@@ -56,10 +58,10 @@ def _standard_normal(shape, like, eps, generator):
         if tuple(eps.shape) != tuple(shape):
             raise ValueError(f"eps has shape {tuple(eps.shape)}, expected "
                              f"{tuple(shape)}")
-        return eps.to(dtype=like.dtype, device=like.device)
+        return onto(eps, like.device, like.dtype)
     gen_device = generator.device if generator is not None else like.device
-    return torch.randn(shape, generator=generator, dtype=like.dtype,
-                       device=gen_device).to(like.device)
+    return onto(torch.randn(shape, generator=generator, dtype=like.dtype,
+                            device=gen_device), like.device)
 
 
 def sample_gaussian(mu, sigma, n=1, eps=None, generator=None,

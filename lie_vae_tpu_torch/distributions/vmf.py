@@ -24,6 +24,8 @@ import math
 
 import torch
 
+from lie_vae_tpu_torch.utils import onto
+
 # proposals of Wood's sampler: the first accepted one is kept, else 0.5
 # (acceptance is above about 66% a round, so 32 rounds always suffice for
 # a healthy kappa), as the JAX sampler's while_loop caps its rounds
@@ -210,18 +212,6 @@ def _draw_device(generator, like):
     return generator.device if generator is not None else like.device
 
 
-def _onto(t, like):
-    """A drawn tensor onto ``like``'s device. From the CPU to a card the
-    copy goes through pinned memory and does not wait: a pageable copy
-    would block the host until the work queued before it (the encoder) had
-    run, once per draw inside the training step."""
-    if t.device == like.device:
-        return t
-    if t.device.type == "cpu" and like.device.type == "cuda":
-        return t.pin_memory().to(like.device, non_blocking=True)
-    return t.to(like.device)
-
-
 def _beta_draws(shape, p, generator, like):
     """Beta((p-1)/2, (p-1)/2) draws: X / (X + Y) with X, Y independent
     chi-squared with p - 1 degrees of freedom, each a sum of p - 1 squared
@@ -259,7 +249,7 @@ def accepted_beta_draw(kappa, p, n, generator=None,
     if proposals is None:
         shape = (num_proposals, n) + tuple(kd.shape)
         proposals = draw_proposals(shape, p, generator, kd)
-    eps, u = (_onto(t, kd) for t in proposals)
+    eps, u = (onto(t, kd.device) for t in proposals)
     root = torch.sqrt(4.0 * kd ** 2 + (p - 1.0) ** 2)
     b = (p - 1.0) / (2.0 * kd + root)
     a = (p - 1.0 + 2.0 * kd + root) / 4.0
@@ -293,8 +283,8 @@ def sample_vmf(mu, kappa, n=1, eps=None, generator=None,
     shape = (n,) + tuple(mu.shape)
     if eps is None:
         e = accepted_beta_draw(kappa, p, n, generator)
-        v = _onto(torch.randn(shape, generator=generator, dtype=mu.dtype,
-                              device=_draw_device(generator, mu)), mu)
+        v = onto(torch.randn(shape, generator=generator, dtype=mu.dtype,
+                             device=_draw_device(generator, mu)), mu.device)
     else:
         if isinstance(eps, torch.Tensor):
             raise TypeError("vMF noise is the pair (accepted Beta draw, "

@@ -110,7 +110,10 @@ def equivariance_loss(encode_fn, img, encoding, theta, num_samples=None,
         encoding = encoding[:num_samples]
     n = img.shape[0]
     theta = torch.as_tensor(theta, device=img.device)[:n].to(img.dtype)
-    v = encoding.new_tensor([1.0, 0.0, 0.0]).expand(n, 3)
+    # the x-axis, made on the device: a copy from the host would wait for
+    # the card to finish the forward queued before it
+    v = torch.eye(3, dtype=encoding.dtype,
+                  device=encoding.device)[0].expand(n, 3)
     s1 = torch.stack([torch.cos(theta), torch.sin(theta)], -1)
     g = s2s1rodrigues(v, s1.to(encoding.dtype))
     enc_rot = g @ encoding

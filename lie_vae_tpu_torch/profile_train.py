@@ -2,6 +2,7 @@
 
     python -m lie_vae_tpu_torch.profile_train [--steps 20] [--batch 512]
         [--kernel_impl fused|pallas] [--bench_recipe] [--find_kernel NAME ...]
+        [--syncs]
 
 Trains the flagship model as ``bench.py`` does (sigma clamp pi * 10 / 2,
 lr 1e-3, clip 1e-5, beta 1; float32 throughout, in IEEE float32 as
@@ -29,11 +30,25 @@ whose name holds each NAME: it profiles two steps with ``record_shapes``
 and prints, for each such kernel, the operator that launched it with its
 input shapes (and dtypes, where torch records them), and the model's
 parameters (by name) whose shape is among them.
+
+``--syncs`` instead counts the synchronising CUDA calls of a training step
+as ``UnsupervisedExperiment.train()`` runs it over a device cache of the
+batch (``device_data``), for the flagship and for the flagship under the
+regularised preset on pairs (equivariance 100, 'shear'; continuity 3000):
+after two warm-up steps it prints the ms a step of ``steps`` steps (host
+clock, untraced), then runs ``steps`` more under
+``torch.cuda.set_sync_debug_mode("warn")`` and prints the synchronising
+calls a step with their call sites (the innermost frames of this package
+on each warning's Python stack) and the experiment's ``staged`` counts.
 """
 import argparse
+import collections
 import math
 import os
 import subprocess
+import time
+import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -46,7 +61,9 @@ from lie_vae_tpu_torch.ops.kernels import (so3_density, wigner_block,
                                            wigner_fused)
 from lie_vae_tpu_torch.precision import flags, ieee_float32
 from lie_vae_tpu_torch.profile_serve import profile_request
-from lie_vae_tpu_torch.train import make_optimizer, train_step
+from lie_vae_tpu_torch.train import (ConstantSchedule, UnsupervisedExperiment,
+                                     get_beta_schedule, make_optimizer,
+                                     train_step)
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CHECKPOINT = os.path.join(_ROOT, "converged_state", "torch_clean",
@@ -56,6 +73,7 @@ _KERNELS = ("wigner_chain", "wigner_block", "so3_density")
 # listed with the port's own whatever their rank
 _CONV = ("xmma", "cudnn", "grad")
 PEAK = 67e12    # the H100's float32 FMA rate outside the tensor cores
+_PACKAGE = os.path.dirname(os.path.abspath(__file__))
 
 
 def time_ms(fn, calls, trials):
@@ -201,6 +219,110 @@ def find_kernel(model, step, name, steps=2):
     return found
 
 
+class _Renders:
+    """Renders as ``UnsupervisedExperiment`` reads a dataset: items of
+    ``per_item`` consecutive images, an item's images on consecutive rows
+    of a batch."""
+
+    def __init__(self, images, per_item):
+        self.images = images.reshape((-1, per_item) + images.shape[1:])
+
+    def __len__(self):
+        return len(self.images)
+
+    def gather(self, indices):
+        idx = np.asarray(indices)
+        return idx, self.images[idx]
+
+    def prep_batch(self, batch):
+        idx, images = batch
+        return idx, images.reshape((-1,) + images.shape[2:])
+
+
+def _call_site(stack):
+    """The innermost two frames of this package (this script left out) on
+    ``stack``, as "file:line function <- file:line function"."""
+    ours = [f for f in stack if f.filename.startswith(_PACKAGE)
+            and not f.filename.endswith("profile_train.py")]
+    return " <- ".join(
+        f"{os.path.relpath(f.filename, os.path.dirname(_PACKAGE))}:"
+        f"{f.lineno} {f.name}" for f in reversed(ours[-2:])) or "elsewhere"
+
+
+def count_syncs(step, steps):
+    """{call site: synchronising CUDA calls} over ``steps`` calls of
+    ``step``: torch's sync debug mode warns at each such call, and the
+    warning's Python stack names the site."""
+    sites = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        # the mode's own notice when it is set ("... does not yet detect
+        # all synchronizing operations") is no call of the step
+        if "called a synchronizing" in str(message):
+            sites[_call_site(traceback.extract_stack()[:-1])] += 1
+        else:
+            print(f"    not counted: {str(message)[:160]}")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(steps):
+                step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sites
+
+
+def sync_report(images, weights, args):
+    """``--syncs``: for each training configuration, the ms a step and
+    the synchronising calls a step of ``train()`` over a device cache of
+    ``images`` (one batch an epoch)."""
+    configs = (("flagship", 1, {}),
+               ("scpairs_reg", 2, dict(
+                   equivariance_lamb=ConstantSchedule(100.0),
+                   encoder_continuity_lamb=ConstantSchedule(3000.0),
+                   equivariance_rotate="shear")))
+    for name, per_item, reg in configs:
+        model = flagship_model(kernel_impl=args.kernel_impl)
+        model.load_state_dict(weights, strict=True)
+        data = _Renders(images, per_item)
+        exp = UnsupervisedExperiment(
+            model=model, train_dataset=data, test_dataset=data,
+            beta_schedule=get_beta_schedule(None, 1.0), lr=1e-3,
+            clip_grads=1e-5, report_freq=None, batch_size=len(data),
+            device_data=True, seed=0, **reg)
+        epoch = [0]
+
+        def step():
+            exp.train(epoch[0])
+            epoch[0] += 1
+
+        step()
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            step()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / args.steps
+        staged = dict(getattr(exp, "staged", {}) or {})
+        sites = count_syncs(step, args.steps)
+        after = getattr(exp, "staged", None)
+        moved = (None if after is None else
+                 {k: (v - staged.get(k, 0)) / args.steps
+                  for k, v in after.items()})
+        print(f"{name}: {ms:.3f} ms a step of {len(images)} images "
+              f"(untraced, {args.steps} steps); "
+              f"{sum(sites.values()) / args.steps:g} synchronising calls a "
+              f"step over {args.steps} steps; staged a step {moved}")
+        for site, n in sites.most_common():
+            print(f"    {n / args.steps:g} a step  {site}")
+
+
 @ieee_float32()
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -213,6 +335,9 @@ def main(argv=None):
     ap.add_argument("--find_kernel", nargs="+", default=(),
                     help="name the layers behind the device kernels whose "
                          "name holds one of these")
+    ap.add_argument("--syncs", action="store_true",
+                    help="count the synchronising calls of a training step "
+                         "in train(), flagship and regularised")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
@@ -226,6 +351,9 @@ def main(argv=None):
     weights = compat.load_torch(_CHECKPOINT)
     with np.load(os.path.join(POSE_SETS_DIR, "spherecube.npz")) as f:
         batch = render_images(f["r"][:args.batch, 0])
+    if args.syncs:
+        sync_report(batch, weights, args)
+        return
     model = (bench_model(kernel_impl=args.kernel_impl) if args.bench_recipe
              else flagship_model(sigma_clamp=math.pi * 10 / 2,
                                  kernel_impl=args.kernel_impl))

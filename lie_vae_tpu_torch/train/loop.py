@@ -32,6 +32,11 @@ the batch and of the noise drawn for all of it, BatchNorm takes the global
 batch's statistics, the gradients are averaged over the ``data`` group
 before the clip, and the metrics are the global batch's.
 
+Nothing in a step waits for the card: each host input (host images, the
+batch's indices into the device cache, the noise, the rotation angles)
+reaches it as a pinned, non_blocking copy (``utils.onto``), so the host
+launches the next step while the card still runs this one.
+
 Under a ``torch.profiler`` session ``train()`` and :func:`train_step` open
 the spans of ``tracing`` (``train.batch``, ``train.inputs``, ``train.step``
 and the step's ``train.forward``, ``train.losses``, ``train.backward``,
@@ -54,6 +59,7 @@ from lie_vae_tpu_torch.precision import ieee_float32
 from lie_vae_tpu_torch.train.checkpoint import apply_state
 from lie_vae_tpu_torch.train.logging import MetricWriter
 from lie_vae_tpu_torch.train.state import make_optimizer
+from lie_vae_tpu_torch.utils import onto
 
 
 def _normalize(x, dtype=torch.float32):
@@ -99,7 +105,7 @@ def train_step(model, optimizer, x, beta, eps=None, generator=None,
     param = next(model.parameters())
     device = param.device
     with tracing.span("train.forward", device=True):
-        x = _normalize(torch.as_tensor(x, device=device), param.dtype)
+        x = _normalize(onto(torch.as_tensor(x), device), param.dtype)
         model.train()
         optimizer.zero_grad()
         x_recon, stats = model(x, n=elbo_samples, eps=eps,
@@ -149,7 +155,7 @@ def train_step(model, optimizer, x, beta, eps=None, generator=None,
             if not isinstance(theta, torch.Tensor):
                 theta = torch.tensor(np.asarray(theta))
             eq, _ = equivariance_loss(encode_fn, x, encoding,
-                                      theta.to(device),
+                                      onto(theta, device),
                                       rotate_impl=equivariance_rotate)
             loss = loss + equivariance_lamb * eq
             metrics["equivariance"] = eq.detach()
@@ -229,6 +235,10 @@ class UnsupervisedExperiment:
     posterior noise (a reference that draws its own noise hands it over
     so; a vMF sampler still draws from its stream). ``report_freq=None``
     makes ``train()`` report never, nor run the ``test()`` of a report.
+
+    ``staged`` counts, by input (``indices``, ``eps``, ``theta``,
+    ``eq_eps``), the copies from the host to a card made without a wait
+    (:meth:`_stage`); it stays empty on the CPU.
     """
 
     def __init__(self, *, model, train_dataset, test_dataset, beta_schedule,
@@ -307,6 +317,7 @@ class UnsupervisedExperiment:
                                  if test_dataset is train_dataset
                                  else self._cache_device(test_dataset))
         self._noise_fn = noise
+        self.staged = {}
         self.last_ll = None
         self.last_metrics = None
 
@@ -330,17 +341,28 @@ class UnsupervisedExperiment:
         rows = torch.as_tensor(np.asarray(images[-1]), device=self.device)
         return rows, rows.shape[0] // len(dataset)
 
-    def _eps(self, stream, n, batch):
+    def _stage(self, name, t, dtype=None):
+        """The host tensor ``t`` (or a tuple of them) on the model's device,
+        in ``dtype`` when given, by ``utils.onto``: to a card a pinned,
+        non_blocking copy, counted in ``staged[name]``."""
+        ts = t if isinstance(t, tuple) else (t,)
+        if self.device.type == "cuda" and any(
+                x.device.type == "cpu" for x in ts):
+            self.staged[name] = self.staged.get(name, 0) + 1
+        out = tuple(onto(x, self.device, dtype) for x in ts)
+        return out if isinstance(t, tuple) else out[0]
+
+    def _eps(self, stream, n, batch, name="eps"):
         """Standard normal posterior noise (n, batch, model.noise_dims) from
         the stream's generator, on the model's device in its dtype; None for
         a deterministic model, which draws none. Over a mesh ``batch`` is
         this rank's rows: the noise of the global batch is drawn and the
-        rank's rows kept."""
+        rank's rows kept. ``name`` is the input's in ``staged``."""
         dims = self.model.noise_dims
         if dims is None:
             return None
         eps = self._randn(stream, (n, self._global(batch), dims))
-        return self._local(eps, batch, 1).to(self.device, self.dtype)
+        return self._stage(name, self._local(eps, batch, 1), self.dtype)
 
     def _randn(self, stream, shape):
         """Standard normals of ``shape`` from the stream's generator, on
@@ -372,26 +394,26 @@ class UnsupervisedExperiment:
         return props + (torch.randn((n, rows, p), generator=gen,
                                     dtype=self.dtype),)
 
-    def _noise(self, stream, n, batch, local=True):
+    def _noise(self, stream, n, batch, local=True, name="eps"):
         """The posterior noise keywords of n samples of ``batch`` items from
         the stream: ``eps`` (:meth:`_eps`); for a vMF model the stream's
         ``generator`` itself, or over a mesh the sampler's draws for the
         global batch, this rank's rows of them; nothing for a deterministic
-        model."""
+        model. ``name`` is the input's in ``staged``."""
         if self.model.noise_dims is not None \
                 and getattr(self.model, "is_vmf", False):
             if self.mesh is None or not local:
                 return {"generator": self._gens[stream]}
             props, u, v = self._vmf_eps(stream, n, self._global(batch))
-            return {"eps": (self._local(props, batch, 2).to(self.device),
-                            self._local(u, batch, 2).to(self.device),
-                            self._local(v, batch, 1).to(self.device))}
+            return {"eps": self._stage(name, (self._local(props, batch, 2),
+                                              self._local(u, batch, 2),
+                                              self._local(v, batch, 1)))}
         dims = self.model.noise_dims
         if local or self.mesh is None:
             eps = self._eps(stream, n, batch)
         elif dims is not None:       # the replicated IW-LL: every row
-            eps = self._randn(stream, (n, batch, dims)).to(self.device,
-                                                           self.dtype)
+            eps = self._stage(name, self._randn(stream, (n, batch, dims)),
+                              self.dtype)
         else:
             eps = None
         return {} if eps is None else {"eps": eps}
@@ -408,18 +430,20 @@ class UnsupervisedExperiment:
         reg = self._regularizers(global_it, batch)
         noise = self._noise("train", self.elbo_samples, batch)
         if self.equivariance_lamb is not None:
-            reg["eq_eps"] = self._noise("train", 1, batch)["eps"]
+            reg["eq_eps"] = self._noise("train", 1, batch,
+                                        name="eq_eps")["eps"]
         return noise, reg
 
     def _batches(self, loader, cached):
         """The loader's batches of inputs: host arrays, or device tensors
-        gathered from the cached dataset by the same indices."""
+        gathered from the cached dataset by the same indices (each batch's
+        indices staged to the device)."""
         if cached is None:
             return (np.asarray(b[-1]) for b in loader)
         rows, factor = cached
         batches = loader._index_batches()
         loader.epoch += 1
-        return (rows[(torch.as_tensor(idx, device=self.device)[:, None]
+        return (rows[(self._stage("indices", torch.as_tensor(idx))[:, None]
                       * factor + torch.arange(factor, device=self.device)
                       ).reshape(-1)]
                 for idx in batches)
@@ -428,7 +452,8 @@ class UnsupervisedExperiment:
         """The train step's regularizer keywords at ``global_it``: each
         configured loss's weight and, for the equivariance loss, the
         rotation angles (B,) and the second pass's noise from the training
-        stream (a vMF model draws that noise from the stream itself)."""
+        stream (a vMF model draws that noise from the stream itself), both
+        staged to the model's device."""
         kw = {}
         if self.encoder_continuity_lamb is not None:
             kw["encoder_continuity_lamb"] = self.encoder_continuity_lamb(
@@ -438,9 +463,10 @@ class UnsupervisedExperiment:
             theta = torch.rand((self._global(batch),), generator=gen)
             kw.update(equivariance_lamb=self.equivariance_lamb(global_it),
                       equivariance_rotate=self.equivariance_rotate,
-                      theta=self._local(theta, batch, 0) * (2.0 * math.pi))
+                      theta=self._stage("theta", self._local(theta, batch, 0)
+                                        * (2.0 * math.pi)))
             if not getattr(self.model, "is_vmf", False):
-                kw["eq_eps"] = self._eps("train", 1, batch)
+                kw["eq_eps"] = self._eps("train", 1, batch, name="eq_eps")
         return kw
 
     # -------------------------------------------------------------- eval

@@ -297,7 +297,7 @@ def test_sampling_path_does_not_synchronise(monkeypatch):
     KL (each waits for the device inside the training step), by the source
     and by a run with them made to raise."""
     for fn in (vmf.accepted_beta_draw, vmf.sample_vmf, vmf._beta_draws,
-               vmf._wood_b, vmf._onto, vmf._series_scaled, vmf.ive,
+               vmf._wood_b, vmf.onto, vmf._series_scaled, vmf.ive,
                vmf.log_ive, vmf.bessel_ratio, vmf._recurrence):
         assert not _SYNC.findall(inspect.getsource(fn)), fn.__name__
 
