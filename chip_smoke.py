@@ -153,6 +153,10 @@ Phases, each timed:
 19. ``bench_serve_load``: the graphed 'fused' session behind the HTTP
    server, /v1/reconstruct at 1 and 4 clients, 2 s each: requests/s,
    images/s, p50/p95 latency; replays only, no launch outside a graph;
+   then ``python -m lie_vae_tpu_torch.cli.serve bench --aot`` of the same
+   artifact in a fresh interpreter, whose JSON line must give
+   ``device_ms_per_batch`` (CUDA events around graph replays) for encode
+   and reconstruct;
 20. sc-pairs: 320 seeded consecutive-pose pairs rendered natively by the
    port's generator as PNG pairs into chiprun_out/;
 21. the regularised step: the flagship from the converged weights with
@@ -1254,6 +1258,30 @@ def aot_vmfq_check(vcfg, vstate, images):
         raise AssertionError(f"the graphed vmfq session differs: {diffs}")
     aot.close()
     return max(diffs)
+
+
+def serve_bench_aot(art):
+    """``python -m lie_vae_tpu_torch.cli.serve bench --aot art`` in a fresh
+    interpreter on the card: its JSON line (the last of its output) must
+    give ``device_ms_per_batch`` above 0 for encode and reconstruct.
+    Returns the two surfaces' entries."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "lie_vae_tpu_torch.cli.serve", "bench",
+         "--aot", art, "--iters", "5", "--stream_chunks", "2"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"cli.serve bench --aot exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    out = {k: res[k] for k in ("encode", "reconstruct")}
+    if not all(v.get("device_ms_per_batch", 0) > 0 for v in out.values()):
+        raise AssertionError(f"cli.serve bench --aot printed no device ms: "
+                             f"{res}")
+    print(f"   cli.serve bench --aot {os.path.relpath(art, ROOT)}: "
+          + "; ".join(f"{k} {v['ms_per_batch']} host ms, "
+                      f"{v['device_ms_per_batch']} device ms a batch of "
+                      f"{res['batch_size']}" for k, v in out.items()))
+    return out
 
 
 def reg_step(weights, batch, noise, impl, rotate, exact=None, cpu=None):
@@ -3416,6 +3444,8 @@ def main():
                              f"replayed {load_replays}")
     print(f"   graph replays in the run {load_replays}, no kernel launched "
           "outside a graph")
+    bench_aot = serve_bench_aot(os.path.join(ROOT, "build", "smoke_aot",
+                                             "flagship_fused.npz"))
     done(t0)
 
     t0 = phase(f"sc-pairs renders: {REG_RENDER} seeded consecutive-pose "
@@ -3846,6 +3876,7 @@ def main():
               "aot": aot_runs, "aot_replays": aot_replays,
               "aot_vmfq_max_diff": aot_vmfq, "aot_load": load_rows,
               "aot_load_replays": load_replays, "pairs_render_s": pairs_s,
+              "serve_bench_aot": bench_aot,
               "reg_step": reg_runs, "reg_step_worst_share": reg_worst,
               "scpairs_cli_epoch_s": scp_epoch_s, "scpairs_tags": reg_tags,
               "analysis_s": analysis_s, "analysis_cpu_s": cpu_analysis_s,

@@ -311,29 +311,25 @@ def cmd_trajectory(argv):
     return out
 
 
-def _device_ms(sess, x, iters):
-    """Device ms per batch of the session's encode and reconstruct on
-    inputs already on the card, by CUDA events around ``iters`` calls
-    (fixed noise on the card: no host work between them); for an
-    AotSession, ``iters`` replays of its graphs."""
-    from lie_vae_tpu_torch.serve import AotSession
-    xb = torch.as_tensor(x, device=sess.device)
-    b, dims = xb.shape[0], sess.model.noise_dims
-    if dims is None:
-        eps = ()
-    elif sess.model.is_vmf:
-        eps = (torch.full((b,), 0.5, device=sess.device),
-               torch.zeros((b, dims), device=sess.device))
-    else:
-        eps = (torch.zeros((b, dims), device=sess.device),)
+def _device_calls(sess, x):
+    """The session's encode and reconstruct as calls over inputs already
+    on the device: a reconstruct of the batch ``x`` leaves it in every
+    replica's input buffer, and the last encode's noise stays in the noise
+    buffers. Each call runs the surface on every replica there (on the card
+    an AotSession's graph replays), no host work between calls, and
+    returns the replicas' outputs."""
+    sess.reconstruct(x)
+    replicas = sess._replicas
+    return {name: lambda name=name: [r.run(name) for r in replicas]
+            for name in ("encode", "reconstruct")}
+
+
+def _device_ms(calls, iters):
+    """Device ms per call of each of ``calls``, by CUDA events around
+    ``iters`` calls after a first one."""
     out = {}
-    fns = (("encode", lambda: sess._encode(xb, *eps)),
-           ("reconstruct", lambda: sess._recon(xb)))
-    if isinstance(sess, AotSession):
-        fns = tuple((name, lambda name=name: sess._run(name))
-                    for name, _ in fns)
     with torch.inference_mode(), ieee_float32():
-        for name, fn in fns:
+        for name, fn in calls.items():
             fn()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -385,7 +381,8 @@ def cmd_bench(argv):
         result["encode_stream"] = {"items": n,
                                    "items_per_s": round(n / dt, 1)}
     if opts.device_iters and sess.device.type == "cuda":
-        for name, ms in _device_ms(sess, x, opts.device_iters).items():
+        calls = _device_calls(sess, x)
+        for name, ms in _device_ms(calls, opts.device_iters).items():
             result[name]["device_ms_per_batch"] = round(ms, 4)
             result[name]["device_items_per_s"] = round(b / ms * 1e3, 1)
     print(json.dumps(result))

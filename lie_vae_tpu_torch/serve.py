@@ -53,7 +53,6 @@ Typical use::
     poses = sess.encode(images)["pose"]
     frames = sess.geodesic(poses[0], poses[1], steps=30)
 """
-import contextlib
 import copy
 import functools
 import json
@@ -62,6 +61,8 @@ import numpy as np
 import torch
 
 from lie_vae_tpu_torch import compat, ops, tracing
+from lie_vae_tpu_torch.distributions.vmf import (NUM_PROPOSALS,
+                                                 draw_proposals)
 from lie_vae_tpu_torch.precision import ieee_float32
 
 
@@ -104,6 +105,121 @@ def _data_devices(mesh, batch_size):
     return mesh.devices
 
 
+# ------------------------------------------------- the fixed-batch surface
+
+def _posterior(stats):
+    """(mean pose, spread) of a stats struct: the algebra-noise sigma for
+    SO(3), kappa (B, 1) for vMF, sigma for the Gaussian."""
+    if hasattr(stats, "mu_lie"):
+        return stats.mu_lie, stats.inner.sigma
+    if hasattr(stats, "kappa"):
+        return stats.mu, stats.kappa
+    return stats.mu, stats.sigma
+
+
+def _encode(model, x, *noise):
+    """A batch's posterior means, spreads and one sample each; ``noise`` in
+    the layout of :meth:`InferenceSession._noise`."""
+    eps = noise[0] if len(noise) == 1 else noise or None
+    s = model.encode(x, n=1, eps=eps)[0]
+    return (*_posterior(s), s.z[0])
+
+
+def _decode(model, z):
+    return model.decode(z[None])[0]
+
+
+def _reconstruct(model, x):
+    """A batch decoded from its posterior mean; the sample beside it takes
+    fixed noise, so nothing is drawn."""
+    dims, b = model.noise_dims, x.shape[0]
+    if dims is None:
+        eps = None
+    elif model.is_vmf:
+        eps = (torch.full((1, b), 0.5, device=x.device),
+               torch.zeros((1, b, dims), device=x.device))
+    else:
+        eps = torch.zeros((1, b, dims), device=x.device)
+    return _decode(model, _posterior(model.encode(x, eps=eps)[0])[0])
+
+
+_SURFACES = {"encode": _encode, "decode": _decode,
+             "reconstruct": _reconstruct}
+
+
+def _pose_shape(model):
+    return {"so3": (3, 3), "normal": (model.normal_dims,), "vmf": (4,),
+            "vmfq": (4,)}[model.latent_mode]
+
+
+class _Replica:
+    """One device's share of a session: its model, its ``rows`` of every
+    chunk, and device buffers at that share of the batch: the input ``x``,
+    the poses ``z``, the uint8 input ``x8`` (scaled into ``x`` by
+    ``table``, :data:`BYTE_SCALE` there in ``x``'s dtype) and the noise in
+    the layout of :meth:`InferenceSession._noise`. ``run`` replays the
+    surface's CUDA graph where :meth:`capture` took one, and otherwise
+    calls the surface function over the buffers."""
+
+    def __init__(self, model, rows, device):
+        self.model, self.rows, self.device = model, rows, device
+        b, dims = rows.stop - rows.start, model.noise_dims
+        self.x = torch.zeros((b,) + tuple(model.out_shape), device=device)
+        self.x8 = torch.zeros(self.x.shape, dtype=torch.uint8, device=device)
+        self.table = torch.from_numpy(BYTE_SCALE).to(device, self.x.dtype)
+        self.z = torch.zeros((b,) + _pose_shape(model), device=device)
+        if dims is None:
+            self.noise = ()
+        elif model.is_vmf:
+            self.noise = (
+                torch.full((NUM_PROPOSALS, 1, b), 0.5, device=device),
+                torch.ones((NUM_PROPOSALS, 1, b), device=device),
+                torch.zeros((1, b, dims), device=device))
+        else:
+            self.noise = (torch.zeros((1, b, dims), device=device),)
+        self.graphs = {}
+        self.replays = dict.fromkeys(_SURFACES, 0)
+
+    def _call(self, surface):
+        x = self.z if surface == "decode" else self.x
+        noise = self.noise if surface == "encode" else ()
+        return _SURFACES[surface](self.model, x, *noise)
+
+    def capture(self):
+        """One CUDA graph per surface over the buffers, each on its own
+        memory pool, in IEEE float32, after two eager runs on a side stream
+        (they build the kernels and pick cuDNN's algorithms); raises if a
+        capture fails."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.inference_mode(), ieee_float32(), \
+                torch.cuda.device(self.device):
+            with torch.cuda.stream(side):
+                for surface in _SURFACES:
+                    for _ in range(2):
+                        self._call(surface)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            torch.cuda.synchronize(self.device)
+            for surface in _SURFACES:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    out = self._call(surface)
+                self.graphs[surface] = (graph, out)
+
+    def run(self, surface):
+        """The surface's outputs over the buffers, on the replica's
+        device."""
+        card = self.device if self.device.type == "cuda" else -1
+        with torch.cuda.device(card), \
+                tracing.span("session.replay", device=True):
+            if surface not in self.graphs:
+                return self._call(surface)
+            graph, out = self.graphs[surface]
+            graph.replay()
+        self.replays[surface] += 1
+        return out
+
+
 class InferenceSession:
     """Fixed-batch inference over a trained model with any of the four
     latents (``so3``, ``normal``, ``vmf``, ``vmfq``) on ``device``, or over
@@ -113,29 +229,31 @@ class InferenceSession:
 
     def __init__(self, model, state_dict, batch_size=64, seed=0,
                  device="cuda", mesh=None):
-        self.batch_size = int(batch_size)
+        batch_size = int(batch_size)
         devices = ([torch.device(device)] if mesh is None
-                   else _data_devices(mesh, self.batch_size))
+                   else _data_devices(mesh, batch_size))
+        model = model.to(devices[0]).eval()
+        model.load_state_dict(state_dict, strict=True)
         self.mesh = mesh
-        self.device = devices[0]
-        self.model = model.to(self.device).eval()
-        self.model.load_state_dict(state_dict, strict=True)
-        self._replicas = [(self.model, self.device)] + [
-            (copy.deepcopy(self.model).to(d).eval(), d) for d in devices[1:]]
+        self._start([model] + [copy.deepcopy(model).to(d).eval()
+                               for d in devices[1:]],
+                    devices, batch_size, seed)
+
+    def _start(self, models, devices, batch_size, seed):
+        """Serve ``models``, one on each of ``devices``: each chunk is split
+        into one contiguous shard a device, a :class:`_Replica` each."""
+        self.batch_size = batch_size
+        self.model, self.device = models[0], devices[0]
+        per = batch_size // len(devices)
+        self._replicas = [_Replica(m, slice(i * per, (i + 1) * per), d)
+                          for i, (m, d) in enumerate(zip(models, devices))]
+        self._cards = list(dict.fromkeys(d for d in devices
+                                         if d.type == "cuda"))
         self._gen = torch.Generator(device="cpu").manual_seed(seed)
         self._requests = 0
-        self._serve_over(devices)
         self._held = {}
         self._copying = []
         self.staged = {"uint8": 0, "float32": 0}
-
-    def _serve_over(self, devices):
-        """Each chunk is split into one contiguous shard a device."""
-        per = self.batch_size // len(devices)
-        self._shards = [slice(i * per, (i + 1) * per)
-                        for i in range(len(devices))]
-        self._cards = list(dict.fromkeys(d for d in devices
-                                         if d.type == "cuda"))
 
     @classmethod
     def from_torch(cls, path, model, batch_size=64, seed=0, device="cuda",
@@ -166,26 +284,15 @@ class InferenceSession:
 
     # ------------------------------------------------------------ plumbing
 
-    def _keep(self, key, shape, dtype, device=None):
-        """The session's own buffer ``key`` (made on first use): on the
-        host when ``device`` is None, pinned when the session serves a card,
-        otherwise on ``device``."""
-        key = (key, tuple(shape), dtype, device)
+    def _keep(self, key, shape, dtype):
+        """The session's host buffer ``key`` (made on first use), pinned
+        when the session serves a card."""
+        key = (key, tuple(shape), dtype)
         buf = self._held.get(key)
         if buf is None:
-            buf = (torch.empty(shape, dtype=dtype, device=device)
-                   if device is not None else
-                   torch.empty(shape, dtype=dtype,
-                               pin_memory=self.device.type == "cuda"))
-            self._held[key] = buf
+            buf = self._held[key] = torch.empty(
+                shape, dtype=dtype, pin_memory=self.device.type == "cuda")
         return buf
-
-    def _table(self, device, dtype=torch.float32):
-        """:data:`BYTE_SCALE` on ``device``, as ``dtype``."""
-        key = ("byte_scale", device, dtype)
-        if key not in self._held:
-            self._held[key] = torch.from_numpy(BYTE_SCALE).to(device, dtype)
-        return self._held[key]
 
     def _stage(self, arrays, lo):
         """Rows ``lo:lo + batch_size`` of each row-aligned request array
@@ -209,89 +316,89 @@ class InferenceSession:
             self.staged[str(staged[0].dtype).removeprefix("torch.")] += 1
         return staged
 
-    def _scaled(self, key, x):
-        """A uint8 input on the device scaled into float32 there
-        (:func:`scale_uint8`, into the buffer ``key``); any other as it
-        is."""
-        if x.dtype != torch.uint8:
-            return x
-        return scale_uint8(x, self._table(x.device),
-                           self._keep(key, x.shape, torch.float32, x.device))
+    def _noise(self, eps):
+        """A chunk's noise on the host, in the replicas' layout: nothing
+        for a deterministic model; a normal's (1, B, d) from the staged
+        ``eps``; for vMF the sampler's proposals and uniforms
+        (NUM_PROPOSALS, 1, B) and the tangent normal (1, B, 4), drawn from
+        the session's generator in the order the model draws them, or,
+        with the staged ``eps`` (accepted draw (B,), tangent normal
+        (B, 4)), the given draw as the first proposal with uniform 0, which
+        accepts it."""
+        m, b = self.model, self.batch_size
+        if m.noise_dims is None:
+            return ()
+        if not m.is_vmf:
+            return (eps[0][None],)
+        if not eps:
+            return draw_proposals((NUM_PROPOSALS, 1, b), m.noise_dims,
+                                  self._gen) + (
+                torch.randn((1, b, m.noise_dims), generator=self._gen),)
+        props = torch.full((NUM_PROPOSALS, 1, b), 0.5)
+        u = torch.ones((NUM_PROPOSALS, 1, b))
+        props[0, 0], u[0] = eps[0], 0.0
+        return props, u, eps[1][None]
 
-    def _copy_in(self, fn, staged):
-        """Each replica's shard of the staged inputs in its device buffers
-        (one non_blocking copy each), uint8 scaled there: the arguments of
-        ``fn``, one list a replica. Over a mesh a vMF encode that draws its
-        noise draws it here for the whole chunk, as the single-device model
-        draws it, and hands each shard its rows."""
-        draws = ()
-        if len(self._replicas) > 1 and fn == self._encode \
-                and len(staged) == 1 and self.model.is_vmf \
-                and self.model.noise_dims is not None:
-            draws = self._vmf_draws()
-        args = []
-        for i, (sl, (_, dev)) in enumerate(zip(self._shards, self._replicas)):
+    def _copy_in(self, surface, staged):
+        """Each replica's rows of the staged chunk written into its device
+        buffers, one non_blocking copy each: float32 straight into the
+        surface's input, uint8 into ``x8`` and scaled from there into
+        ``x``; for ``encode`` also the chunk's :meth:`_noise`."""
+        noise = self._noise(staged[1:]) if surface == "encode" else ()
+        for r in self._replicas:
+            x = staged[0][r.rows]
+            dst = (r.x8 if x.dtype == torch.uint8
+                   else r.z if surface == "decode" else r.x)
+            if x.shape != dst.shape:
+                raise ValueError(f"{surface} takes rows of shape "
+                                 f"{tuple(dst.shape[1:])}, not "
+                                 f"{tuple(x.shape[1:])}")
             with tracing.span("session.copy_in"):
-                xs = []
-                for j, s in enumerate(staged):
-                    x = self._keep(("dev", i, j), s[sl].shape, s.dtype, dev)
-                    xs.append(x.copy_(s[sl], non_blocking=True))
-                if draws:
-                    props, u, v = draws
-                    xs += [a.to(dev) for a in (props[..., sl], u[..., sl],
-                                               v[:, sl])]
+                dst.copy_(x, non_blocking=True)
+                mine = ([t[..., r.rows] for t in noise[:-1]]
+                        + [t[:, r.rows] for t in noise[-1:]])
+                for buf, t in zip(r.noise, mine):
+                    buf.copy_(t, non_blocking=True)
             with tracing.span("session.normalize"):
-                args.append([self._scaled(("scaled", i, j), x)
-                             for j, x in enumerate(xs)])
-        return args
-
-    def _replay(self, fn, args):
-        """``fn`` on each replica's arguments: its outputs, one a replica."""
-        outs = []
-        for (model, _), a in zip(self._replicas, args):
-            with self._on(model), tracing.span(
-                    "session.replay", device=len(self._replicas) == 1):
-                outs.append(fn(*a))
-        return outs
+                if dst is r.x8:
+                    scale_uint8(r.x8, r.table, r.x)
 
     def _copy_out(self, outs):
         """The replicas' outputs (each a tensor or a tuple of them) copied,
         non_blocking, into their rows of the session's output buffers at the
         batch shape, then one wait for the devices: the buffers as numpy."""
         host = []
-        for sl, out in zip(self._shards, outs):
+        for r, out in zip(self._replicas, outs):
             for k, o in enumerate(out if isinstance(out, tuple) else (out,)):
                 if k == len(host):
                     host.append(self._keep(
                         ("out", k), (self.batch_size,) + o.shape[1:],
                         o.dtype))
-                host[k][sl].copy_(o, non_blocking=True)
+                host[k][r.rows].copy_(o, non_blocking=True)
         for dev in self._cards:
             torch.cuda.current_stream(dev).synchronize()
         return [h.numpy() for h in host]
 
-    def _chunked(self, fn, *arrays):
-        """Run ``fn`` on full ``batch_size`` chunks of the row-aligned
-        ``arrays`` and return its outputs, an array or a tuple of them, of
-        the request's N rows. Each chunk goes through the session's buffers:
-        its rows staged on the host (:meth:`_stage`), copied to the device
-        and scaled there if uint8 (:meth:`_copy_in`), ``fn`` run over each
-        replica's shard (:meth:`_replay`), the outputs copied back
-        (:meth:`_copy_out`) and their rows written into the answer, fresh
-        arrays of N rows made at the first chunk."""
+    def _chunked(self, surface, *arrays):
+        """The fixed-batch ``surface`` over full ``batch_size`` chunks of
+        the row-aligned ``arrays``: its outputs, an array or a tuple of
+        them, of the request's N rows. Each chunk's rows are staged on the
+        host (:meth:`_stage`), copied into the replicas' buffers and scaled
+        there if uint8 (:meth:`_copy_in`), run on every replica
+        (:meth:`_Replica.run`), copied back (:meth:`_copy_out`) and written
+        into the answer, fresh arrays of N rows made at the first chunk."""
         n = arrays[0].shape[0]
         if n == 0:
             raise ValueError("empty request (0 rows)")
         answer = None
         with torch.inference_mode():
             for lo in range(0, n, self.batch_size):
-                staged = self._stage(arrays, lo)
-                args = self._copy_in(fn, staged)
+                self._copy_in(surface, self._stage(arrays, lo))
                 self._copying = []
                 for dev in self._cards:
                     self._copying.append(torch.cuda.Event())
                     self._copying[-1].record(torch.cuda.current_stream(dev))
-                outs = self._replay(fn, args)
+                outs = [r.run(surface) for r in self._replicas]
                 with tracing.span("session.copy_out"):
                     host = self._copy_out(outs)
                 with tracing.span("session.gather"):
@@ -302,68 +409,6 @@ class InferenceSession:
                     for a, h in zip(answer, host):
                         a[lo:lo + rows] = h[:rows]
         return answer if len(answer) > 1 else answer[0]
-
-    @contextlib.contextmanager
-    def _on(self, model):
-        """The session's per-chunk methods run on ``model``."""
-        own = self.model
-        self.model = model
-        try:
-            yield
-        finally:
-            self.model = own
-
-    def _vmf_draws(self):
-        """The vMF sampler's draws for one chunk, in the order the model
-        draws them from the session's generator: proposals and uniforms
-        (NUM_PROPOSALS, 1, B), then the tangent normal (1, B, p)."""
-        from lie_vae_tpu_torch.distributions.vmf import (NUM_PROPOSALS,
-                                                         draw_proposals)
-        b, p = self.batch_size, self.model.noise_dims
-        props = draw_proposals((NUM_PROPOSALS, 1, b), p, self._gen)
-        return props + (torch.randn((1, b, p), generator=self._gen),)
-
-    @staticmethod
-    def _posterior(stats):
-        """(mean pose, spread) of a stats struct: the algebra-noise sigma
-        for SO(3), kappa (B, 1) for vMF, sigma for the Gaussian."""
-        if hasattr(stats, "mu_lie"):
-            return stats.mu_lie, stats.inner.sigma
-        if hasattr(stats, "kappa"):
-            return stats.mu, stats.kappa
-        return stats.mu, stats.sigma
-
-    def _encode(self, x, *eps):
-        """One chunk's posterior and sample; ``eps`` is nothing (the
-        session's generator draws), one standard normal, vMF's pair, or the
-        vMF sampler's draws (proposals, uniforms, tangent normal; each with
-        its sample axis)."""
-        if not eps:
-            s = self.model.encode(x, n=1, generator=self._gen)[0]
-        elif len(eps) == 1:
-            s = self.model.encode(x, n=1, eps=eps[0][None])[0]
-        elif len(eps) == 2:
-            s = self.model.encode(x, n=1, eps=tuple(e[None] for e in eps))[0]
-        else:
-            s = self.model.encode(x, n=1, eps=tuple(eps))[0]
-        return (*self._posterior(s), s.z[0])
-
-    def _decode(self, z):
-        return self.model.decode(z[None])[0]
-
-    def _recon(self, x):
-        """One chunk decoded from its posterior mean; the sample beside it
-        takes fixed noise, so nothing is drawn."""
-        dims, b = self.model.noise_dims, x.shape[0]
-        if dims is None:
-            eps = None
-        elif self.model.is_vmf:
-            eps = (torch.full((1, b), 0.5, device=x.device),
-                   torch.zeros((1, b, dims), device=x.device))
-        else:
-            eps = torch.zeros((1, b, dims), device=x.device)
-        s = self.model.encode(x, eps=eps)[0]
-        return self._decode(self._posterior(s)[0])
 
     # ------------------------------------------------------------- surface
 
@@ -378,16 +423,14 @@ class InferenceSession:
         draws it (a deterministic model draws none and samples its
         mean)."""
         x = np.asarray(images)
-        dims = self.model.noise_dims
-        if dims is None or (eps is None and self.model.is_vmf):
-            pose, sigma, sample = self._chunked(self._encode, x)
-        else:
-            if eps is None:
-                eps = torch.randn((x.shape[0], dims),
-                                  generator=self._gen).numpy()
-            parts = eps if self.model.is_vmf else (eps,)
-            pose, sigma, sample = self._chunked(
-                self._encode, x, *(np.asarray(e, np.float32) for e in parts))
+        m = self.model
+        if eps is None and m.noise_dims is not None and not m.is_vmf:
+            eps = torch.randn((x.shape[0], m.noise_dims),
+                              generator=self._gen).numpy()
+        parts = (() if eps is None or m.noise_dims is None
+                 else eps if m.is_vmf else (eps,))
+        pose, sigma, sample = self._chunked(
+            "encode", x, *(np.asarray(e, np.float32) for e in parts))
         return {"pose": pose, "sigma": sigma, "sample": sample}
 
     @_request
@@ -398,14 +441,14 @@ class InferenceSession:
         return self._decode_poses(poses)
 
     def _decode_poses(self, poses):
-        return self._chunked(self._decode, np.asarray(poses, np.float32))
+        return self._chunked("decode", np.asarray(poses, np.float32))
 
     @_request
     @ieee_float32()
     def reconstruct(self, images):
         """Encode to the posterior mean, then decode: the autoencoder
         path."""
-        return self._chunked(self._recon, np.asarray(images))
+        return self._chunked("reconstruct", np.asarray(images))
 
     @_request
     @ieee_float32()
@@ -508,14 +551,6 @@ def export_npz_from_torch(torch_path, model, out_path):
 
 # ------------------------------------------------- the ahead-of-time session
 
-_SURFACES = ("encode", "decode", "reconstruct")
-
-
-def _pose_shape(model):
-    return {"so3": (3, 3), "normal": (model.normal_dims,), "vmf": (4,),
-            "vmfq": (4,)}[model.latent_mode]
-
-
 def _jsonable(value):
     if isinstance(value, torch.Tensor):
         value = value.detach().cpu().numpy()
@@ -595,71 +630,6 @@ def serving_devices(n, device="cuda"):
     return [torch.device("cuda", i) for i in range(n)]
 
 
-class _AotReplica:
-    """One device's share of an :class:`AotSession`: the model, its static
-    buffers at the shard's batch, and on the card one CUDA graph per
-    surface."""
-
-    _decode = InferenceSession._decode
-    _recon = InferenceSession._recon
-    _posterior = staticmethod(InferenceSession._posterior)
-
-    def __init__(self, model, batch, device):
-        from lie_vae_tpu_torch.distributions.vmf import NUM_PROPOSALS
-        self.model, self.device, self.batch = model, device, batch
-        m, b, dev = model, batch, device
-        self.x = torch.zeros((b,) + tuple(m.out_shape), device=dev)
-        self.z = torch.zeros((b,) + _pose_shape(m), device=dev)
-        if m.noise_dims is None:
-            self.noise = None
-        elif m.is_vmf:
-            self.noise = (torch.full((NUM_PROPOSALS, 1, b), 0.5, device=dev),
-                          torch.ones((NUM_PROPOSALS, 1, b), device=dev),
-                          torch.zeros((1, b, m.noise_dims), device=dev))
-        else:
-            self.noise = torch.zeros((1, b, m.noise_dims), device=dev)
-        self.fns = {"encode": self._encode_static,
-                    "decode": lambda: self._decode(self.z),
-                    "reconstruct": lambda: self._recon(self.x)}
-        self.graphs = {}
-        if dev.type == "cuda":
-            self._capture()
-
-    def _encode_static(self):
-        s = self.model.encode(self.x, n=1, eps=self.noise)[0]
-        return (*self._posterior(s), s.z[0])
-
-    def _capture(self):
-        """Capture one graph per surface; raises if a capture fails."""
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.inference_mode(), ieee_float32(), \
-                torch.cuda.device(self.device):
-            with torch.cuda.stream(side):
-                for fn in self.fns.values():
-                    for _ in range(2):
-                        fn()
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            torch.cuda.synchronize(self.device)
-            for name, fn in self.fns.items():
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph):
-                    out = fn()
-                self.graphs[name] = (graph, out)
-
-    def run(self, name):
-        """The surface's outputs over the static inputs: a replay of its
-        graph on the card, the function itself on the CPU."""
-        if self.device.type != "cuda":
-            with tracing.span("session.replay", device=True):
-                return self.fns[name]()
-        graph, out = self.graphs[name]
-        with torch.cuda.device(self.device), \
-                tracing.span("session.replay", device=True):
-            graph.replay()
-        return out
-
-
 class AotSession(InferenceSession):
     """Serving over an :func:`export_aot` artifact, with no model flags: the
     model is rebuilt from the artifact's ``model`` keywords. The surface is
@@ -667,22 +637,17 @@ class AotSession(InferenceSession):
     weights and seed returns the same numbers.
 
     On the card each fixed-batch surface (``encode``, ``decode``,
-    ``reconstruct``; ``sample`` and ``geodesic`` decode) is one CUDA graph,
-    captured once at construction (``torch.cuda.graph``, each on its own
-    memory pool, in IEEE float32, after two eager runs that build the
-    kernels and pick cuDNN's algorithms) and replayed for every chunk: a
-    chunk is copied into the graph's static input buffer (a uint8 chunk
-    into a buffer of its own, scaled from there into the static input),
-    the graph replays, and its static outputs are copied out. A capture
-    that fails raises. Noise is drawn outside the graph, from the session's
-    CPU generator exactly as :class:`InferenceSession` draws it, and copied
-    into a static buffer: for vMF the sampler's proposals and uniforms, the
-    pick against kappa staying inside the graph (a given accepted draw
-    enters as the first proposal with uniform 0, which accepts it). The
-    kernels count a launch at capture and none at a replay; ``replays``
-    counts each surface's replays (one per device and chunk). On the CPU
-    the same fixed-batch functions run eagerly over the same buffers.
-    ``close()`` frees the graphs.
+    ``reconstruct``; ``sample`` and ``geodesic`` decode) is one CUDA graph
+    a replica (:meth:`_Replica.capture`), captured once at construction
+    over the replica's buffers and replayed for every chunk; a capture that
+    fails raises. Noise is drawn outside the graph, from the session's CPU
+    generator as :class:`InferenceSession` draws it, into the buffers: for
+    vMF the sampler's proposals and uniforms, the pick against kappa
+    staying inside the graph. The kernels count a launch at capture and
+    none at a replay; ``replays`` counts each surface's replays (one per
+    device and chunk). On the CPU the same fixed-batch functions run
+    eagerly over the same buffers. ``close()`` frees the graphs (the
+    session then runs eagerly).
 
     An artifact exported over ``data_devices`` devices is served over as
     many: ``devices`` (default :func:`serving_devices`, which raises on a
@@ -719,89 +684,25 @@ class AotSession(InferenceSession):
             raise ValueError(f"{path} was exported over {n} data devices; "
                              f"{len(devices)} given")
         weights = {k: v for k, v in flat.items() if not k.startswith("__")}
-        batch = int(meta["batch_size"])
         models = []
         for d in devices:
             model = LieVAE(**meta["model"], device=d)
             model.load_state_dict(compat.state_dict_from_jax(weights, model),
                                   strict=True)
             models.append(model.eval())
-        super().__init__(models[0], models[0].state_dict(), batch_size=batch,
-                         seed=seed, device=devices[0])
-        self.meta = meta
-        self.replays = dict.fromkeys(_SURFACES, 0)
-        self._aot = [_AotReplica(m, batch // n, d)
-                     for m, d in zip(models, devices)]
-        self._serve_over(devices)
-        self._surface = {self._encode: "encode", self._decode: "decode",
-                         self._recon: "reconstruct"}
+        self.meta, self.mesh = meta, None
+        self._start(models, devices, int(meta["batch_size"]), seed)
+        for r in self._replicas:
+            if r.device.type == "cuda":
+                r.capture()
+
+    @property
+    def replays(self):
+        """Each surface's graph replays, one per device and chunk."""
+        return {s: sum(r.replays[s] for r in self._replicas)
+                for s in _SURFACES}
 
     def close(self):
         """Free the graphs and their memory pools."""
-        for r in self._aot:
+        for r in self._replicas:
             r.graphs.clear()
-
-    def _chunk_noise(self, eps):
-        """A chunk's noise in the buffers' layout, on the CPU: ``eps`` is ()
-        (the session's generator draws, as InferenceSession's model does
-        per chunk), a standard normal (B, dims), or vMF's pair (accepted
-        draw (B,), tangent normal (B, 4)); None for a deterministic
-        model."""
-        from lie_vae_tpu_torch.distributions.vmf import NUM_PROPOSALS
-        m, b = self.model, self.batch_size
-        if m.noise_dims is None:
-            return None
-        if not m.is_vmf:
-            return eps[0][None]
-        if eps:
-            props = torch.full((NUM_PROPOSALS, 1, b), 0.5)
-            u = torch.ones((NUM_PROPOSALS, 1, b))
-            props[0, 0] = eps[0]
-            u[0] = 0.0
-            return props, u, eps[1][None]
-        return self._vmf_draws()
-
-    @staticmethod
-    def _load_noise(r, noise, sl):
-        if noise is None:
-            return
-        if isinstance(noise, torch.Tensor):
-            r.noise.copy_(noise[:, sl])
-            return
-        props, u, v = noise
-        for dst, src in zip(r.noise, (props[..., sl], u[..., sl], v[:, sl])):
-            dst.copy_(src)
-
-    def _copy_in(self, fn, staged):
-        """Each replica's shard of the staged chunk copied (non_blocking)
-        into its static input of ``fn``'s surface, a uint8 shard into a
-        device buffer of its own and scaled from there into the static
-        input, and the chunk's noise into the static noise buffers: the
-        surface's name."""
-        name = self._surface[fn]
-        noise = self._chunk_noise(staged[1:]) if name == "encode" else None
-        for i, (sl, r) in enumerate(zip(self._shards, self._aot)):
-            static = r.z if name == "decode" else r.x
-            with tracing.span("session.copy_in"):
-                x = staged[0][sl]
-                if x.dtype == torch.uint8:
-                    x = self._keep(("dev", i, 0), x.shape, x.dtype,
-                                   r.device).copy_(x, non_blocking=True)
-                else:
-                    static.copy_(x, non_blocking=True)
-                self._load_noise(r, noise, sl)
-            with tracing.span("session.normalize"):
-                if x.dtype == torch.uint8:
-                    scale_uint8(x, self._table(r.device, static.dtype),
-                                static)
-        return name
-
-    def _replay(self, fn, name):
-        """Every replica's surface ``name`` replayed, so that the replicas'
-        devices run at the same time: their static outputs."""
-        outs = []
-        for r in self._aot:
-            outs.append(r.run(name))
-            if r.device.type == "cuda":
-                self.replays[name] += 1
-        return outs

@@ -205,6 +205,29 @@ def test_a_jax_aot_artifact_raises(jax_aot, artifacts, tmp_path):
         tserve.AotSession(plain, device="cpu")
 
 
+@pytest.mark.parametrize("kind", ["eager", "aot"])
+def test_bench_device_calls_answer_as_the_session(artifacts, kind):
+    """``cli.serve bench``'s device-time calls (inputs already in the
+    replicas' buffers, no host work) each run once and answer as the
+    session's own encode and reconstruct of the batch."""
+    a = artifacts["so3"]
+    sess = (tserve.AotSession(a["art"], seed=3, device="cpu")
+            if kind == "aot" else
+            tserve.InferenceSession(a["model"], a["model"].state_dict(),
+                                    batch_size=4, seed=3, device="cpu"))
+    x = _inputs(sess.model, 4, 1)
+    want = sess.encode(x)                         # its noise stays
+    calls = cli_serve._device_calls(sess, x)
+    assert sorted(calls) == ["encode", "reconstruct"]
+    with torch.inference_mode():
+        got = {name: fn() for name, fn in calls.items()}
+    for k, outs in zip(("pose", "sigma", "sample"), zip(*got["encode"])):
+        np.testing.assert_array_equal(torch.cat(outs).numpy(), want[k],
+                                      err_msg=k)
+    np.testing.assert_array_equal(torch.cat(got["reconstruct"]).numpy(),
+                                  sess.reconstruct(x))
+
+
 def test_read_only_requests_are_copied(artifacts):
     a = artifacts["normal"]
     sess = tserve.InferenceSession(a["model"], a["model"].state_dict(),
@@ -256,7 +279,8 @@ def test_cli_export_aot_then_sample_and_http(run_dir, monkeypatch):
 
 
 @pytest.mark.parametrize("mode", list(CONFIGS))
-def test_aot_session_over_two_data_devices(artifacts, tmp_path, mode):
+def test_aot_session_over_two_data_devices(artifacts, tmp_path, mode,
+                                           monkeypatch):
     """An artifact exported over a 2-device mesh records it, and its
     session (two CPU replicas, each chunk split in halves) answers as the
     single-device InferenceSession of the same weights and seed."""
@@ -266,7 +290,13 @@ def test_aot_session_over_two_data_devices(artifacts, tmp_path, mode):
                             batch_size=4,
                             mesh=make_mesh(2, devices=["cpu", "cpu"]))
     aot = tserve.AotSession(art, seed=3, device="cpu")
-    assert aot.meta["data_devices"] == 2 and len(aot._aot) == 2
+    ran, run = [], tserve._Replica.run
+    monkeypatch.setattr(tserve._Replica, "run",
+                        lambda r, surface: ran.append(r.rows) or run(
+                            r, surface))
+    aot.reconstruct(_inputs(aot.model, 4, 0))     # one chunk, two replicas
+    assert aot.meta["data_devices"] == 2
+    assert ran == [slice(0, 2), slice(2, 4)]
     live = tserve.InferenceSession(a["model"], a["model"].state_dict(),
                                    batch_size=4, seed=3, device="cpu")
     x = _inputs(aot.model, 6, 1)

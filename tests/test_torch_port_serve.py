@@ -95,6 +95,10 @@ def test_padding_is_invisible(small_sessions):
                                    full[i:i + 1], rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match="empty"):
         tsess.decode(np.zeros((0, 3, 3), np.float32))
+    # rows the batch buffers would take only by broadcasting
+    with pytest.raises(ValueError,
+                       match=r"takes rows of shape \(64, 64, 3\)"):
+        tsess.reconstruct(np.zeros((2, 64, 64, 1), np.float32))
 
 
 def test_sample_and_noise_come_from_the_seed(small_sessions):
@@ -161,28 +165,25 @@ def staging_sessions(small_sessions, tmp_path_factory):
     return out
 
 
-def _host_path(sess, fn, *arrays):
+def _host_path(sess, shards, fn, *arrays):
     """``fn``'s answers by the host path the sessions served by before
     their staging buffers: uint8 scaled by numpy, each chunk padded by
-    repeating its last row and split into one shard a replica, run there,
+    repeating its last row and split into ``shards`` shards, ``fn`` (a
+    surface function of ``serve``) run on each over the session's model,
     the outputs concatenated and cut to N rows."""
     arrays = [a.astype(np.float32) / 255.0 if a.dtype == np.uint8
               else np.asarray(a, np.float32) for a in arrays]
     n, b = arrays[0].shape[0], sess.batch_size
-    models = ([r.model for r in sess._aot]
-              if isinstance(sess, tserve.AotSession)
-              else [m for m, _ in sess._replicas])
-    per = b // len(models)
+    per = b // shards
     parts = []
     with torch.inference_mode(), ieee_float32():
         for lo in range(0, n, b):
             chunk = [np.concatenate(
                 [a[lo:lo + b]] + [a[-1:]] * max(0, lo + b - n))
                 for a in arrays]
-            for i, m in enumerate(models):
-                with sess._on(m):
-                    out = fn(*(torch.from_numpy(c[i * per:(i + 1) * per])
-                               for c in chunk))
+            for i in range(shards):
+                out = fn(sess.model, *(torch.from_numpy(
+                    c[i * per:(i + 1) * per]) for c in chunk))
                 parts.append([o.numpy() for o in (
                     out if isinstance(out, tuple) else (out,))])
     res = tuple(np.concatenate(p)[:n] for p in zip(*parts))
@@ -195,6 +196,7 @@ def _host_path(sess, fn, *arrays):
 def test_staged_answers_match_the_host_path(staging_sessions, kind, dtype,
                                             n):
     sess = staging_sessions[kind]
+    shards = 2 if kind.endswith("_mesh") else 1
     rng = np.random.default_rng(n)
     x = (_images(n, n) if dtype == "uint8"
          else rng.random((n, 64, 64, 3)).astype(np.float32))
@@ -205,15 +207,17 @@ def test_staged_answers_match_the_host_path(staging_sessions, kind, dtype,
     chunks = -(-n // sess.batch_size)
     assert sess.staged == dict(before, **{dtype: before[dtype] + chunks})
     assert got.shape == (n, 64, 64, 3) and got.flags.owndata
-    np.testing.assert_array_equal(got, _host_path(sess, sess._recon, x))
+    np.testing.assert_array_equal(
+        got, _host_path(sess, shards, tserve._reconstruct, x))
     kept = got.copy()
     enc = sess.encode(x, eps=eps)                 # three outputs
-    for k, want in zip(("pose", "sigma", "sample"),
-                       _host_path(sess, sess._encode, x, eps)):
+    for k, want in zip(("pose", "sigma", "sample"), _host_path(
+            sess, shards, lambda m, x, e: tserve._encode(m, x, e[None]),
+            x, eps)):
         np.testing.assert_array_equal(enc[k], want, err_msg=k)
     np.testing.assert_array_equal(
-        sess.decode(enc["pose"]), _host_path(sess, sess._decode,
-                                             enc["pose"]))
+        sess.decode(enc["pose"]),
+        _host_path(sess, shards, tserve._decode, enc["pose"]))
     np.testing.assert_array_equal(got, kept)      # not a reused buffer
 
 
